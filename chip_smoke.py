@@ -3,16 +3,18 @@
 
     python3 chip_smoke.py
 
-Three phases, each printing one JSON line:
+Four phases, each printing JSON lines:
 
-1. build: g++ builds the host extension and nvcc builds the CUDA kernels,
-   both from the sources in the checkout, at the same time;
-2. kernels: every kernel of the main path runs on random batches made from a
-   numpy seed, at bench.py's shape, at bands 16 and 32, at R = 2000 and at
-   the main path's own shapes (a few to a few hundred pairs, R = 160), and
-   must equal its plain PyTorch version on the same CUDA tensors bit for
-   bit; the kernel and the plain version are timed with CUDA events (median
-   of 7 runs after a warm-up, plain of 5);
+1. build: g++ builds the host extension and nvcc builds the three CUDA
+   kernels (csrc/pairhmm.cu, pairhmm_lanes.cu, pairhmm_cost.cu), all from
+   the sources in the checkout, all at the same time; ptxas registers and
+   spills per kernel and band;
+2. kernels: every kernel runs on random batches made from a numpy seed, at
+   bench.py's shape, at bands 16 and 32, at R = 2000 and at the main path's
+   own shapes (a few to a few hundred pairs, R = 160), and must equal its
+   plain PyTorch twin on the same CUDA tensors bit for bit; kernel, call
+   and plain twin are timed with CUDA events (median of 7 runs after a
+   warm-up, plain of 5);
 3. main_path: a simulated 30x diploid sample is called in memory through
    IndividualCaller on the card, window by window. A first, untimed run
    with the host-DP gate at 0 keeps every kernel launch and holds each
@@ -21,7 +23,17 @@ Three phases, each printing one JSON line:
    gate at 0, so that every HMM job set goes to the kernel (default, 0, 0,
    default). Every run must write the same VCF records, each run at gate 0
    must launch the kernel, and recall and precision against the simulated
-   truth must reach 0.95.
+   truth must reach 0.95;
+4. cli: a simulated 30x diploid BAM (written untimed by the port's own
+   writer) is called through octopus_tpu_torch.cli.main on the card, with
+   inline threshold CSR. First two untimed runs with the host-DP gate at 0,
+   one through csrc/pairhmm.cu and one with OCTOPUS_TPU_UNROLLED_HMM=1
+   through csrc/pairhmm_lanes.cu, keep every launch (from populate and from
+   read assignment) and hold each against its plain twin. Then timed runs
+   in turns: default gate, gate 0, gate 0 unrolled, default gate. Every
+   run must write the same VCF records, reach recall and precision 0.95 on
+   PASS records and leave FACET_MISSES at 0; each gate-0 run must launch
+   its kernel from both populate and read assignment.
 
 Then it prints the card's name and power limit, the kernel table, and as
 its last line {"ok": true, "device": {...}}. Any failure raises, and the
@@ -45,6 +57,7 @@ import numpy as np
 
 SEED = 2024
 REGION_KB = 100          # of a whole genome: cut for the run's time limit
+CLI_REGION_KB = 300      # the CLI phase's contig: cut for the time limit
 DEPTH = 30
 READ_LEN = 150
 WINDOW_TARGET_READS = 5000
@@ -56,9 +69,18 @@ DRAM_BYTES_PER_S = 3.35e12
 # int32 ops the pair-HMM needs per band cell (csrc/pairhmm.cu): match cost
 # 8, M 3, I 4, deletion open 2, deletion chain 2
 OPS_PER_CELL = 19
+# the cost kernel's own work per cell: the wavefront without the 8
+# match-cost ops, which ran when the cost tensor was built
+COST_OPS_PER_CELL = OPS_PER_CELL - 8
 # the main path's job sets: 150 bp reads in the 32-wide length bucket (R =
 # 160), a few to a few hundred pairs a launch, bands 8 and 16
 MAIN_PATH_SHAPES = [(B, 160, pad) for pad in (8, 16) for B in (1, 9, 37, 300)]
+KERNELS = ("pairhmm", "pairhmm_lanes", "pairhmm_cost")
+REPLACES = {
+    "pairhmm": "octopus_tpu/core/likelihood/pairhmm_batch.py:531",
+    "pairhmm_lanes": "octopus_tpu/core/likelihood/pairhmm_batch.py:319",
+    "pairhmm_cost": "octopus_tpu/core/likelihood/pairhmm_batch.py:233",
+}
 
 
 def emit(obj) -> None:
@@ -77,17 +99,11 @@ def card_line() -> str:
 # phase 1: build
 # ---------------------------------------------------------------------------
 
-def phase_build():
-    from octopus_tpu_torch import _build
-    from octopus_tpu_torch.core.likelihood import pairhmm_batch as pb
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        native = pool.submit(_build.require_native)
-        kernel = pool.submit(pb.kernel_library)
-        native.result()
-        kernel.result()
+def ptxas_table(log: str) -> dict:
+    """Registers and spill bytes per band from nvcc's -Xptxas -v log."""
     ptxas = {}
     current = None
-    for line in _build.BUILDS["pairhmm"]["log"].splitlines():
+    for line in log.splitlines():
         if "Compiling entry function" in line:
             current = "D" + line.split("ILi")[1].split("E")[0]
         elif current and "spill stores" in line:
@@ -96,11 +112,22 @@ def phase_build():
                               "spill_load_bytes": int(parts[8])}
         elif current and "Used" in line and "registers" in line:
             ptxas[current]["registers"] = int(line.split("Used")[1].split()[0])
+    return ptxas
+
+
+def phase_build():
+    from octopus_tpu_torch import _build
+    from octopus_tpu_torch.core.likelihood import pairhmm_batch as pb
+    with concurrent.futures.ThreadPoolExecutor(1 + len(KERNELS)) as pool:
+        jobs = [pool.submit(_build.require_native)]
+        jobs += [pool.submit(pb.kernel_library, name) for name in KERNELS]
+        for job in jobs:
+            job.result()
     emit({"phase": "build",
           "host_extension_loaded": "octopus_tpu_torch._native" in sys.modules,
           "host_extension_s": _build.BUILDS["_native"]["seconds"],
-          "nvcc_s": _build.BUILDS["pairhmm"]["seconds"],
-          "ptxas": ptxas})
+          "nvcc_s": {n: _build.BUILDS[n]["seconds"] for n in KERNELS},
+          "ptxas": {n: ptxas_table(_build.BUILDS[n]["log"]) for n in KERNELS}})
 
 
 # ---------------------------------------------------------------------------
@@ -169,6 +196,45 @@ def pairhmm_bound(B, R, pad):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def cost_bound(B, R, pad):
+    """Least time for the cost kernel's own work on B pairs: the (R*D, B)
+    cost tensor and the opn/ext tracks read once and the scores written
+    once over the memory rate, against COST_OPS_PER_CELL int32 ops per
+    cell (plus row 0 and the band minimum, 6 per lane) over the int32
+    rate."""
+    D = 2 * pad
+    W = R + 2 * pad - 1
+    ops = (COST_OPS_PER_CELL * R + 6) * D * B
+    nbytes = (R * D + 2 * W) * 4 * B + 4 * B
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    t_bytes = nbytes / DRAM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def kernel_variants(pb, args, pad):
+    """kernel -> (one launch on prepared inputs, the call, its plain twin,
+    the bound function) for batch-major CUDA tracks `args`."""
+    tracks = [a.t().contiguous() for a in args]
+    cm = pb.match_cost_tensor(args[0], args[1], args[2], args[5], args[6],
+                              pad=pad)
+    opnT, extT = tracks[3], tracks[4]
+    return {
+        "pairhmm": (lambda: pb.launch_kernel(tracks, pad=pad),
+                    lambda: pb.pairhmm_scores_cuda(*args, pad=pad),
+                    lambda: pb.pairhmm_scores_plain(*args, pad=pad),
+                    pairhmm_bound),
+        "pairhmm_lanes": (lambda: pb.launch_lanes(args, pad=pad),
+                          lambda: pb.pairhmm_scores_lanes_cuda(*args, pad=pad),
+                          lambda: pb.pairhmm_scores_lanes_plain(*args,
+                                                                pad=pad),
+                          pairhmm_bound),
+        "pairhmm_cost": (lambda: pb.launch_cost(cm, opnT, extT, pad=pad),
+                         lambda: pb.pairhmm_scores_cost_cuda(*args, pad=pad),
+                         lambda: pb.pairhmm_scores_cost_plain(*args, pad=pad),
+                         cost_bound),
+    }
+
+
 def phase_kernels():
     import torch
     from octopus_tpu_torch.core.likelihood import pairhmm_batch as pb
@@ -180,30 +246,33 @@ def phase_kernels():
     # the main path's own shapes, ragged batch edges (B % 128 != 0) included
     cases += [(f"main_B{B}_R{R}_band{pad}", B, R, pad, B % 2 == 1)
               for B, R, pad in MAIN_PATH_SHAPES]
-    results = []
+    results = {k: [] for k in KERNELS}
     for name, B, R, pad, heavy in cases:
         host = random_batch(rng, B, R, pad, heavy_indel=heavy)
         args = [torch.from_numpy(a).cuda() for a in host]
-        got = pb.pairhmm_scores_cuda(*args, pad=pad)
-        want = pb.pairhmm_scores_plain(*args, pad=pad)
-        torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
-        if err != 0:
-            raise AssertionError(f"{name}: kernel differs from plain by {err}")
-        tracks = [a.t().contiguous() for a in args]
-        kernel_ms = cuda_ms(lambda: pb.launch_kernel(tracks, pad=pad))
-        wrapper_ms = cuda_ms(lambda: pb.pairhmm_scores_cuda(*args, pad=pad))
-        plain_ms = cuda_ms(lambda: pb.pairhmm_scores_plain(*args, pad=pad),
-                           reps=5)
-        bound_ms, bound_by = pairhmm_bound(B, R, pad)
-        row = {"case": name, "B": B, "R": R, "pad": pad,
-               "max_abs_err": err, "kernel_ms": kernel_ms,
-               "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-               "pairs_per_s": B / (wrapper_ms / 1e3),
-               "cells_per_s": B * R * 2 * pad / (wrapper_ms / 1e3),
-               "bound_ms": bound_ms, "bound_by": bound_by}
-        emit({"phase": "kernels", **row})
-        results.append(row)
+        for kernel, (launch, call, plain, bound) in kernel_variants(
+                pb, args, pad).items():
+            got = call()
+            want = plain()
+            torch.cuda.synchronize()
+            err = int((got.long() - want.long()).abs().max())
+            if err != 0:
+                raise AssertionError(f"{kernel} {name}: kernel differs from "
+                                     f"its plain twin by {err}")
+            kernel_ms = cuda_ms(launch)
+            wrapper_ms = cuda_ms(call)
+            plain_ms = cuda_ms(plain, reps=5)
+            bound_ms, bound_by = bound(B, R, pad)
+            row = {"kernel": kernel, "case": name, "B": B, "R": R, "pad": pad,
+                   "max_abs_err": err, "kernel_ms": kernel_ms,
+                   "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+                   "pairs_per_s": B / (wrapper_ms / 1e3),
+                   "cells_per_s": B * R * 2 * pad / (wrapper_ms / 1e3),
+                   "bound_ms": bound_ms, "bound_by": bound_by}
+            emit({"phase": "kernels", **row})
+            results[kernel].append(row)
+        del args
+        torch.cuda.empty_cache()
     return results
 
 
@@ -277,48 +346,88 @@ def accuracy(lines, truth, tol=5):
     return recall, precision
 
 
+# kernel -> (its launcher in pairhmm_batch, whether the launcher takes
+# batch-major tracks)
+LAUNCHERS = {"pairhmm": ("launch_kernel", False),
+             "pairhmm_lanes": ("launch_lanes", True)}
+
+
 @contextlib.contextmanager
-def kept_launches(pb, into):
-    """Keeps a copy of every kernel launch's tracks and scores in `into`."""
-    launch = pb.launch_kernel
+def kept_launches(pb, into, kernel="pairhmm", la=None):
+    """Keeps a copy of every launch of `kernel` in `into`: (tracks, pad,
+    nuc_prior, scores, source), where source is the likelihood array's
+    ("populate" or "assignment") when `la` is given."""
+    name, _ = LAUNCHERS[kernel]
+    launch = getattr(pb, name)
+    source = [None]
 
     def keeping(tracks, *, pad, nuc_prior=pb.DEFAULT_NUC_PRIOR):
         out = launch(tracks, pad=pad, nuc_prior=nuc_prior)
-        into.append(([t.clone() for t in tracks], pad, nuc_prior, out.clone()))
+        into.append(([t.clone() for t in tracks], pad, nuc_prior, out.clone(),
+                     source[0]))
         return out
 
-    pb.launch_kernel = keeping
+    setattr(pb, name, keeping)
+    if la is not None:
+        scores = la.HaplotypeLikelihoodArray._device_scores
+
+        def tagged(self, *args, **kwargs):
+            source[0] = self.source
+            return scores(self, *args, **kwargs)
+
+        la.HaplotypeLikelihoodArray._device_scores = tagged
     try:
         yield
     finally:
-        pb.launch_kernel = launch
+        setattr(pb, name, launch)
+        if la is not None:
+            la.HaplotypeLikelihoodArray._device_scores = scores
 
 
-def check_main_path_launches(pb, kept):
-    """Every kept launch's scores against the plain version on the same
-    CUDA tensors, and the kernel's time for all of them against their
-    summed bound."""
-    import torch
+def check_launches(pb, kept, phase, kernel="pairhmm"):
+    """Every kept launch's scores against the kernel's plain twin on the
+    same CUDA tensors; each launch timed alone, and all of them replayed,
+    against their bounds, per source."""
+    name, batch_major = LAUNCHERS[kernel]
+    plain = {"pairhmm": pb.pairhmm_scores_plain,
+             "pairhmm_lanes": pb.pairhmm_scores_lanes_plain}[kernel]
+    launch = getattr(pb, name)
     err = 0
-    shapes = collections.Counter()
-    for tracks, pad, nuc_prior, got in kept:
-        want = pb.pairhmm_scores_plain(*(t.t() for t in tracks), pad=pad,
-                                       nuc_prior=nuc_prior)
+    by_source = collections.defaultdict(list)
+    for tracks, pad, nuc_prior, got, source in kept:
+        args = tracks if batch_major else [t.t() for t in tracks]
+        want = plain(*args, pad=pad, nuc_prior=nuc_prior)
         err = max(err, int((got.long() - want.long()).abs().max()))
-        shapes[f"B{tracks[0].shape[1]}_R{tracks[0].shape[0]}_pad{pad}"] += 1
+        B, R = args[0].shape
+        ms = cuda_ms(lambda: launch(tracks, pad=pad, nuc_prior=nuc_prior),
+                     reps=3)
+        by_source[source].append((B, R, pad, ms, pairhmm_bound(B, R, pad)[0]))
     if err != 0:
-        raise AssertionError(f"main-path launches differ from plain by {err}")
+        raise AssertionError(f"{phase}: {kernel} launches differ from the "
+                             f"plain twin by {err}")
 
     def replay():
-        for tracks, pad, nuc_prior, _ in kept:
-            pb.launch_kernel(tracks, pad=pad, nuc_prior=nuc_prior)
+        for tracks, pad, nuc_prior, _, _ in kept:
+            launch(tracks, pad=pad, nuc_prior=nuc_prior)
 
-    bound_ms = sum(pairhmm_bound(t[0].shape[1], t[0].shape[0], pad)[0]
-                   for t, pad, _, _ in kept)
-    emit({"phase": "main_path_launches", "launches": len(kept),
-          "pairs": sum(t[0].shape[1] for t, _, _, _ in kept),
-          "max_abs_err": err, "shapes": dict(shapes),
-          "kernel_ms_all": cuda_ms(replay), "bound_ms_all": bound_ms})
+    summary = {}
+    for source, rows in sorted(by_source.items(), key=str):
+        Bs = [r[0] for r in rows]
+        ms = [r[3] for r in rows]
+        summary[str(source)] = {
+            "launches": len(rows), "pairs": sum(Bs),
+            "B_min": min(Bs), "B_median": statistics.median(Bs),
+            "B_max": max(Bs),
+            "shapes": dict(collections.Counter(
+                f"R{r[1]}_pad{r[2]}" for r in rows)),
+            "launch_ms_min": min(ms), "launch_ms_median": statistics.median(ms),
+            "launch_ms_max": max(ms), "launch_ms_sum": sum(ms),
+            "bound_ms_sum": sum(r[4] for r in rows),
+            "largest_launch": max(rows)[:4]}
+    emit({"phase": phase, "kernel": kernel, "launches": len(kept),
+          "max_abs_err": err, "by_source": summary,
+          "kernel_ms_all": cuda_ms(replay),
+          "bound_ms_all": sum(v["bound_ms_sum"] for v in summary.values())})
     return err
 
 
@@ -358,7 +467,7 @@ def phase_main_path(device="cuda", kb=REGION_KB):
         if not kept:
             raise AssertionError("the checked all-kernel run never launched "
                                  "the kernel")
-        err = check_main_path_launches(pb, kept)
+        err = check_launches(pb, kept, "main_path_launches")
     timers.enabled = True
     runs = [("checked", checked_lines, len(kept))]
     # in turns, so that neither routing gains from running second
@@ -404,6 +513,145 @@ def phase_main_path(device="cuda", kb=REGION_KB):
     return all_kernel_launches, err
 
 
+# ---------------------------------------------------------------------------
+# phase 4: the CLI
+# ---------------------------------------------------------------------------
+
+CLI_ENV_KEYS = ("OCTOPUS_TPU_HOST_HMM_MAX", "OCTOPUS_TPU_UNROLLED_HMM",
+                "OCTOPUS_TPU_HOST_LATENTS")
+# label -> (environment, the kernel its gate-0 job sets must launch)
+CLI_RUNS = {
+    "default_gate": ({}, None),
+    "gate0": ({"OCTOPUS_TPU_HOST_HMM_MAX": "0"}, "pairhmm"),
+    "gate0_lanes": ({"OCTOPUS_TPU_HOST_HMM_MAX": "0",
+                     "OCTOPUS_TPU_UNROLLED_HMM": "1"}, "pairhmm_lanes"),
+}
+
+
+def phase_cli(device="cuda", kb=CLI_REGION_KB):
+    """The port CLI on a simulated BAM: untimed checked runs at gate 0 for
+    each kernel, then timed runs in turns. Returns (launches of each kernel
+    in its timed gate-0 run, max_abs_err of each kernel's kept launches).
+    device="cpu" rehearses the phase with the plain twins."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from octopus_tpu_torch import cli
+    from octopus_tpu_torch.core.csr import measures
+    from octopus_tpu_torch.core.likelihood import likelihood_array as la
+    from octopus_tpu_torch.core.likelihood import pairhmm_batch as pb
+    from octopus_tpu_torch.core.models import genotype_likelihoods as gl
+    from octopus_tpu_torch.utils import timers
+    from octopus_tpu_torch.utils.synthetic import simulate_diploid
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        t0 = time.perf_counter()
+        fa, bam, truth, n = simulate_diploid(
+            tmp, kb=kb, depth=DEPTH, read_len=READ_LEN, seed=SEED,
+            spacing=(600, 1800), err=0.001)
+        emit({"phase": "cli_input", "region_kb": kb, "depth": DEPTH,
+              "read_len": READ_LEN, "truth": len(truth),
+              "bam_bytes": os.path.getsize(bam),
+              "simulate_and_write_s": time.perf_counter() - t0})
+
+        sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+
+        def run(label, timed):
+            env, kernel = CLI_RUNS[label]
+            scorer = (kernel if device == "cuda" or kernel is None
+                      else kernel + "_plain")
+            for k in CLI_ENV_KEYS:
+                os.environ.pop(k, None)
+            os.environ.update(env)
+            la._PENALTY_CACHE.clear()
+            la._KMER_INDEX_CACHE.clear()
+            timers.reset()
+            for counts in pb.KERNEL_COUNTS.values():
+                counts.reset()
+            la.ROUTING.reset()
+            gl.COUNTS.reset()
+            misses = measures.FACET_MISSES
+            out = os.path.join(tmp, f"{label}_{'timed' if timed else 'checked'}.vcf")
+            sync()
+            t = time.perf_counter()
+            rc = cli.main(["-R", fa, "-I", bam, "-o", out, "--device", device,
+                           "--benchmark"])
+            sync()
+            wall = time.perf_counter() - t
+            if rc != 0:
+                raise AssertionError(f"cli {label}: exit code {rc}")
+            with open(out) as fh:
+                lines = [line.rstrip("\n") for line in fh
+                         if not line.startswith("#")]
+            recall, precision = accuracy(lines, truth)
+            phase_s = dict(timers._totals)
+            row = {"phase": "cli", "run": label, "timed": timed,
+                   "device": device,
+                   "wall_s": wall, "wall_s_per_kb": wall / kb,
+                   "launches": {k: c.launches
+                                for k, c in pb.KERNEL_COUNTS.items()},
+                   "pairs": {k: c.pairs for k, c in pb.KERNEL_COUNTS.items()},
+                   "job_sets": {f"{src}/{sc}": v for (src, sc), v
+                                in sorted(la.ROUTING.job_sets.items())},
+                   "route_pairs": {f"{src}/{sc}": v for (src, sc), v
+                                   in sorted(la.ROUTING.pairs.items())},
+                   "genotype_reductions_host": gl.COUNTS.host,
+                   "genotype_reductions_card": gl.COUNTS.device,
+                   "facet_misses": measures.FACET_MISSES - misses,
+                   "phase_s": phase_s,
+                   "read_assignment_share": (phase_s.get("read_assignment", 0.0)
+                                             / wall),
+                   "records": len(lines),
+                   "pass_records": sum(line.split("\t")[6] == "PASS"
+                                       for line in lines),
+                   "recall": recall, "precision": precision}
+            emit(row)
+            if recall < 0.95 or precision < 0.95:
+                raise AssertionError(f"cli {label}: recall {recall} "
+                                     f"precision {precision}")
+            if row["facet_misses"]:
+                raise AssertionError(f"cli {label}: {row['facet_misses']} "
+                                     "facet misses")
+            if scorer is not None:
+                for src in ("populate", "assignment"):
+                    if not la.ROUTING.job_sets[(src, scorer)]:
+                        raise AssertionError(f"cli {label}: {scorer} never "
+                                             f"ran from {src}")
+                others = [k for k, c in pb.KERNEL_COUNTS.items()
+                          if k != scorer and c.launches]
+                if others:
+                    raise AssertionError(f"cli {label}: launched {others}")
+            return lines, row
+
+        errs = {}
+        runs = []
+        for label in ("gate0", "gate0_lanes"):
+            kernel = CLI_RUNS[label][1]
+            kept = []
+            with kept_launches(pb, kept, kernel, la):
+                lines, _ = run(label, timed=False)
+            runs.append(lines)
+            if device == "cuda":
+                errs[kernel] = check_launches(pb, kept, "cli_launches", kernel)
+        launches = {}
+        # in turns, so that no routing gains from running later
+        for label in ("default_gate", "gate0", "gate0_lanes", "default_gate"):
+            lines, row = run(label, timed=True)
+            runs.append(lines)
+            kernel = CLI_RUNS[label][1]
+            if kernel is not None:
+                launches[kernel] = row["launches"][kernel]
+        if any(lines != runs[0] for lines in runs):
+            raise AssertionError("cli runs wrote different records")
+        return launches, errs
+    finally:
+        for k in CLI_ENV_KEYS:
+            os.environ.pop(k, None)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -413,23 +661,38 @@ def main() -> int:
 
     phase_build()
     kernel_rows = phase_kernels()
-    launches, main_path_err = phase_main_path()
-    bench = kernel_rows[0]
+    main_path_launches, main_path_err = phase_main_path()
+    emit({"phase": "main_path_kernel_launches",
+          "pairhmm": main_path_launches})
+    cli_launches, cli_errs = phase_cli()
     print(card_line(), flush=True)
-    emit({"kernels": [{
-        "name": "pairhmm",
-        "route": "cuda",
-        "source": "octopus_tpu_torch/csrc/pairhmm.cu",
-        "replaces": "octopus_tpu/core/likelihood/pairhmm_batch.py:531",
-        "launches": launches,
-        "max_abs_err": max([main_path_err]
-                           + [r["max_abs_err"] for r in kernel_rows]),
-        "ms": bench["wrapper_ms"],
-        "plain_ms": bench["plain_ms"],
-        "bound_ms": bench["bound_ms"],
-        "bound_by": bench["bound_by"],
-        "library_ms": None,
-    }]})
+    sources = {"pairhmm": "octopus_tpu_torch/csrc/pairhmm.cu",
+               "pairhmm_lanes": "octopus_tpu_torch/csrc/pairhmm_lanes.cu",
+               "pairhmm_cost": "octopus_tpu_torch/csrc/pairhmm_cost.cu"}
+    kept_errs = {"pairhmm": [main_path_err, cli_errs["pairhmm"]],
+                 "pairhmm_lanes": [cli_errs["pairhmm_lanes"]],
+                 "pairhmm_cost": []}
+    table = []
+    for kernel in KERNELS:
+        rows = kernel_rows[kernel]
+        bench = rows[0]
+        table.append({
+            "name": kernel,
+            "route": "cuda",
+            "source": sources[kernel],
+            "replaces": REPLACES[kernel],
+            # the CLI path's gate-0 run through this kernel; the cost
+            # kernel is on no path (as Pallas v2 is in the reference)
+            "launches": cli_launches.get(kernel, 0),
+            "max_abs_err": max(kept_errs[kernel]
+                               + [r["max_abs_err"] for r in rows]),
+            "ms": bench["wrapper_ms"],
+            "plain_ms": bench["plain_ms"],
+            "bound_ms": bench["bound_ms"],
+            "bound_by": bench["bound_by"],
+            "library_ms": None,
+        })
+    emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

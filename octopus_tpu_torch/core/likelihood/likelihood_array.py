@@ -27,7 +27,9 @@ matching the reference bit-for-bit in score space.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from collections import Counter
+from dataclasses import dataclass, field
+import threading
 import zlib
 
 import numpy as np
@@ -44,7 +46,7 @@ from .error_models import (
     make_error_models,
 )
 from .kmer_mapper import HaplotypeKmerIndex, read_kmer_hashes
-from .pairhmm_batch import PAD_CODE, pairhmm_scores
+from .pairhmm_batch import PAD_CODE, pairhmm_scores, scorer_name
 
 # process-wide memos for per-haplotype derived state (penalty tracks, k-mer
 # indices), keyed by sequence content; FIFO-capped. Read-only values, safe
@@ -56,16 +58,45 @@ _CACHE_MAX = 8192
 
 @dataclass
 class RoutingCounts:
-    """Where HMM job sets went: the host DP or the device scorer."""
+    """Where HMM job sets went, by (source, scorer): source "populate" (the
+    beam and the likelihood populate) or "assignment" (CSR read
+    assignment); scorer "host_dp" (the native host DP) or the
+    pairhmm_batch.scorer_name of the kernel or plain twin that ran."""
 
-    host_job_sets: int = 0
-    host_pairs: int = 0
-    device_job_sets: int = 0
-    device_pairs: int = 0
+    job_sets: Counter = field(default_factory=Counter)
+    pairs: Counter = field(default_factory=Counter)
+    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False,
+                                  compare=False)
+
+    def record(self, source: str, scorer: str, pairs: int) -> None:
+        with self._lock:
+            self.job_sets[(source, scorer)] += 1
+            self.pairs[(source, scorer)] += pairs
+
+    def _total(self, counter: Counter, host: bool) -> int:
+        return sum(v for (_, scorer), v in counter.items()
+                   if (scorer == "host_dp") == host)
+
+    @property
+    def host_job_sets(self) -> int:
+        return self._total(self.job_sets, True)
+
+    @property
+    def host_pairs(self) -> int:
+        return self._total(self.pairs, True)
+
+    @property
+    def device_job_sets(self) -> int:
+        return self._total(self.job_sets, False)
+
+    @property
+    def device_pairs(self) -> int:
+        return self._total(self.pairs, False)
 
     def reset(self) -> None:
-        self.host_job_sets = self.host_pairs = 0
-        self.device_job_sets = self.device_pairs = 0
+        with self._lock:
+            self.job_sets.clear()
+            self.pairs.clear()
 
 
 ROUTING = RoutingCounts()
@@ -150,10 +181,16 @@ class HaplotypePenalties:
 
 
 class HaplotypeLikelihoodArray:
-    """Computes and stores per-sample (H, R) log-likelihood matrices."""
+    """Computes and stores per-sample (H, R) log-likelihood matrices.
 
-    def __init__(self, config: LikelihoodConfig | None = None):
+    `source` labels this array's HMM job sets in ROUTING: "populate" for
+    the beam and the likelihood populate, "assignment" for CSR read
+    assignment."""
+
+    def __init__(self, config: LikelihoodConfig | None = None,
+                 source: str = "populate"):
         self.config = config or LikelihoodConfig()
+        self.source = source
         self.device = resolve_device(self.config.device)
         if self.device.type == "cuda":
             require_native()
@@ -574,8 +611,7 @@ class HaplotypeLikelihoodArray:
                     tgt.astype(np.int32), quals.astype(np.int32),
                     win, opn, ext, mask, prior, L, W)
             if corrected is not None:
-                ROUTING.host_job_sets += 1
-                ROUTING.host_pairs += n
+                ROUTING.record(self.source, "host_dp", n)
                 ln = -LN10_DIV_10 * corrected.astype(np.float64)
                 return ln
 
@@ -586,8 +622,7 @@ class HaplotypeLikelihoodArray:
             scores = pairhmm_scores(tgt_i, qual_i, win, opn, ext, mask, prior,
                                     pad=pad, nuc_prior=cfg.nuc_prior,
                                     device=self.device).cpu().numpy()
-        ROUTING.device_job_sets += 1
-        ROUTING.device_pairs += n
+        ROUTING.record(self.source, scorer_name(self.device), n)
         ln = -LN10_DIV_10 * scores.astype(np.float64)
 
         # flank discount: traceback-and-subtract for reads overlapping flanks
@@ -666,7 +701,7 @@ def populate_assignment_blocks(jobs, config: LikelihoodConfig | None = None
     """
     from ...basics.reads import ReadBatch
 
-    arr = HaplotypeLikelihoodArray(config)
+    arr = HaplotypeLikelihoodArray(config, source="assignment")
     arr._pooled_cap_trig = None
     cfg = arr.config
     results: list = [None] * len(jobs)

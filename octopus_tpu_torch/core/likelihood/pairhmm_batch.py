@@ -1,4 +1,4 @@
-"""Batched banded pair-HMM scoring: a CUDA kernel and its plain PyTorch twin.
+"""Batched banded pair-HMM scoring: three CUDA kernels and their plain twins.
 
 The hot loop of the engine: one integer-phred banded Viterbi score per
 read x haplotype pair. The contract is the reference package's
@@ -15,15 +15,27 @@ read x haplotype pair. The contract is the reference package's
   parity rule), so scores are bit-identical to it;
 * the output is (B,) int32.
 
-Three functions:
+All four TPU kernels of the reference compute this one function. The port
+has three CUDA kernels, each with a plain PyTorch twin that runs on any
+device and that the CPU tests hold against the reference:
 
-* `pairhmm_scores_plain` ports the XLA wavefront (`_hmm_rows_fast`,
-  `_match_cost_tensor`, `_deletion_scan`) to torch ops on (rows, B)
-  tensors. It runs on any device; the dispatcher uses it for CPU tensors.
-* `pairhmm_scores_cuda` launches the hand-written kernel of
-  `csrc/pairhmm.cu` (one thread per pair) on CUDA tensors and counts its
-  launches and pairs in `COUNTS`.
-* `pairhmm_scores` picks between them by the device of its inputs.
+* `pairhmm_scores_cuda` (csrc/pairhmm.cu, one thread per pair; replaces
+  Pallas v12 and v9) and its twin `pairhmm_scores_plain`, which ports the
+  XLA wavefront (`_hmm_rows_fast`, `_match_cost_tensor`, `_deletion_scan`);
+* `pairhmm_scores_lanes_cuda` (csrc/pairhmm_lanes.cu, the band on a warp's
+  lanes; replaces Pallas v8) and its twin `pairhmm_scores_lanes_plain`,
+  which ports `_pallas_kernel_v8`'s own arithmetic (`pre = cumsum(ext)`,
+  `_min_scan`);
+* `pairhmm_scores_cost_cuda` (csrc/pairhmm_cost.cu, over a match-cost
+  tensor built outside the kernel; replaces Pallas v2) and its twin
+  `pairhmm_scores_cost_plain`.
+
+`pairhmm_scores` dispatches by the device of its inputs: the v12/v9
+kernel on CUDA tensors and its twin on the CPU; with
+OCTOPUS_TPU_UNROLLED_HMM=1, as the reference's dispatcher, the v8 kernel
+on CUDA tensors and its twin on the CPU. The v2 entry points stay off the
+dispatcher, as in the reference. Each CUDA wrapper counts its launches and
+pairs in its own `KernelCounts`, and refuses CPU tensors.
 
 Nothing here clamps the tracks to int8 (the TPU transfer width): like the
 XLA path, every track is full int32.
@@ -32,7 +44,9 @@ XLA path, every track is full int32.
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
+import os
+import threading
+from dataclasses import dataclass, field
 
 import torch
 
@@ -74,6 +88,16 @@ def _deletion_scan(bv: torch.Tensor, ev: torch.Tensor, D: int) -> torch.Tensor:
     return bv
 
 
+def _min_scan(u: torch.Tensor, D: int) -> torch.Tensor:
+    """Inclusive running minimum along the leading (diagonal) axis."""
+    s = 1
+    while s < D:
+        u = torch.minimum(u, torch.cat([torch.full_like(u[:s], INF), u[:-s]],
+                                       dim=0))
+        s *= 2
+    return u
+
+
 def _match_cost_tensor(tgt, qual, win, mask, prior, y0: int, y1: int, D: int):
     """(y1-y0, D, B) match costs; [y, d] pairs target[y] with window[y+d]."""
     ids = (torch.arange(y0, y1, device=tgt.device)[:, None]
@@ -86,23 +110,20 @@ def _match_cost_tensor(tgt, qual, win, mask, prior, y0: int, y1: int, D: int):
     return torch.where(w_g == N, torch.clamp(cm, max=N_SCORE), cm)
 
 
-def _hmm_rows(tgt, qual, win, opn, ext, mask, prior, pad: int, nuc_prior: int):
-    """Row wavefront over kernel-layout (rows, B) int32 tensors -> (B,)."""
-    R, B = tgt.shape
+def _wavefront(cm_row, opn, ext, R: int, pad: int, nuc_prior: int):
+    """The XLA row wavefront (`_hmm_rows_fast`) over (D, B) match costs
+    cm_row(y) of rows y = 1..R and (W, B) opn/ext -> (B,) scores."""
+    B = opn.shape[1]
     D = 2 * pad
-    d_odd = (torch.arange(D, device=tgt.device) % 2 == 1)[:, None].expand(D, B)
-    M = torch.zeros((D, B), dtype=torch.int32, device=tgt.device)
+    d_odd = (torch.arange(D, device=opn.device) % 2 == 1)[:, None].expand(D, B)
+    M = torch.zeros((D, B), dtype=torch.int32, device=opn.device)
     M_gap = torch.where(d_odd, M, torch.full_like(M, INF))
     Ii = torch.full_like(M, INF)
     Dd = _deletion_scan(_shift_down(M_gap, INF) + _shift_down(opn[0:D], INF),
                         _shift_down(ext[0:D], 0), D)
-    cm_block = None
     for y in range(1, R + 1):
         off = y - 1
-        if off % _COST_ROWS == 0:
-            cm_block = _match_cost_tensor(tgt, qual, win, mask, prior, off,
-                                          min(off + _COST_ROWS, R), D)
-        cm = cm_block[off % _COST_ROWS]
+        cm = cm_row(y)
         opn_win = opn[off:off + D]
         ext_win = ext[off:off + D]
         # row 1: gap ops out of row 0 see the parity-masked M0
@@ -112,6 +133,66 @@ def _hmm_rows(tgt, qual, win, opn, ext, mask, prior, pad: int, nuc_prior: int):
                                        _shift_up(Ii, INF) + ext_win)
         Dd = _deletion_scan(_shift_down(torch.minimum(Mn, In), INF) + opn_win,
                             ext_win, D)
+        M, Ii = Mn, In
+    return torch.amin(torch.minimum(torch.minimum(M, Ii), Dd), dim=0)
+
+
+def _hmm_rows(tgt, qual, win, opn, ext, mask, prior, pad: int, nuc_prior: int):
+    """Row wavefront over kernel-layout (rows, B) int32 tensors -> (B,),
+    building the match costs _COST_ROWS rows at a time."""
+    R = tgt.shape[0]
+    D = 2 * pad
+    block = {}
+
+    def cm_row(y):
+        off = y - 1
+        if off % _COST_ROWS == 0:
+            block["cm"] = _match_cost_tensor(tgt, qual, win, mask, prior, off,
+                                             min(off + _COST_ROWS, R), D)
+        return block["cm"][off % _COST_ROWS]
+
+    return _wavefront(cm_row, opn, ext, R, pad, nuc_prior)
+
+
+def _hmm_rows_v8(tgt, qual, win, opn, ext, mask, prior, pad: int,
+                 nuc_prior: int):
+    """`_pallas_kernel_v8` on kernel-layout (rows, B) int32 tensors -> (B,):
+    match costs per row, and the deletion chain as a running minimum over
+    bv - pre with pre = cumsum(ext)."""
+    R, B = tgt.shape
+    D = 2 * pad
+    pre = torch.cumsum(ext, dim=0, dtype=torch.int32)
+
+    def cm_at(y):
+        t = tgt[y - 1:y]
+        q = qual[y - 1:y]
+        w = win[y - 1:y - 1 + D]
+        m = mask[y - 1:y - 1 + D]
+        p = prior[y - 1:y - 1 + D]
+        capped = torch.where(m == t, torch.minimum(q, p), q)
+        pen = torch.where(t == w, torch.zeros_like(capped), capped)
+        return torch.where(w == N, torch.clamp(pen, max=N_SCORE), pen)
+
+    d_odd = (torch.arange(D, device=tgt.device) % 2 == 1)[:, None].expand(D, B)
+    ZERO = torch.zeros((D, B), dtype=torch.int32, device=tgt.device)
+    INFc = torch.full_like(ZERO, INF)
+    M0_gap = torch.where(d_odd, ZERO, INFc)
+    opn0 = _shift_down(opn[0:D], INF)
+    pre0 = _shift_down(pre[0:D], 0)
+    bv0 = _shift_down(M0_gap, INF) + opn0
+    Dd = _min_scan(bv0 - pre0, D) + pre0
+    M, Ii = ZERO, INFc
+    for y in range(1, R + 1):
+        cm = cm_at(y)
+        opn_win = opn[y - 1:y - 1 + D]
+        ext_win = ext[y - 1:y - 1 + D]
+        pre_win = pre[y - 1:y - 1 + D]
+        M_for_gap = M0_gap if y == 1 else M
+        Mn = cm + torch.minimum(torch.minimum(M, Ii), Dd)
+        In = nuc_prior + torch.minimum(_shift_up(M_for_gap, INF) + opn_win,
+                                       _shift_up(Ii, INF) + ext_win)
+        bv = _shift_down(torch.minimum(Mn, In), INF) + opn_win
+        Dd = _min_scan(bv - pre_win, D) + pre_win
         M, Ii = Mn, In
     return torch.amin(torch.minimum(torch.minimum(M, Ii), Dd), dim=0)
 
@@ -134,96 +215,229 @@ def _check_shapes(tgt, qual, win, opn, ext, mask, prior, pad: int):
     return B, R, W
 
 
+def _kernel_layout(*tracks) -> list[torch.Tensor]:
+    """Batch-major tracks as contiguous int32 (rows, B)."""
+    return [a.to(torch.int32).t().contiguous() for a in tracks]
+
+
 def pairhmm_scores_plain(tgt, qual, win, opn, ext, mask, prior, *, pad: int = 8,
                          nuc_prior: int = DEFAULT_NUC_PRIOR) -> torch.Tensor:
-    """Plain PyTorch scorer on any device: (B,) int32 scores."""
+    """Plain PyTorch scorer on any device (the XLA wavefront): (B,) int32."""
     _check_shapes(tgt, qual, win, opn, ext, mask, prior, pad)
-    tracks = [a.to(torch.int32).t().contiguous()
-              for a in (tgt, qual, win, opn, ext, mask, prior)]
-    return _hmm_rows(*tracks, pad, nuc_prior)
+    return _hmm_rows(*_kernel_layout(tgt, qual, win, opn, ext, mask, prior),
+                     pad, nuc_prior)
+
+
+def pairhmm_scores_lanes_plain(tgt, qual, win, opn, ext, mask, prior, *,
+                               pad: int = 8,
+                               nuc_prior: int = DEFAULT_NUC_PRIOR
+                               ) -> torch.Tensor:
+    """Plain twin of the lanes kernel (Pallas v8's arithmetic) on any
+    device: (B,) int32 scores."""
+    _check_shapes(tgt, qual, win, opn, ext, mask, prior, pad)
+    return _hmm_rows_v8(*_kernel_layout(tgt, qual, win, opn, ext, mask, prior),
+                        pad, nuc_prior)
+
+
+def match_cost_tensor(tgt, qual, win, mask, prior, *, pad: int) -> torch.Tensor:
+    """The (R*D, B) int32 match-cost tensor of batch-major tracks, as XLA
+    builds it outside Pallas v2 (row (y-1)*D + d pairs read base y-1 with
+    window base y-1+d)."""
+    R, B = tgt.shape[1], tgt.shape[0]
+    D = 2 * pad
+    t, q, w, m, p = _kernel_layout(tgt, qual, win, mask, prior)
+    return _match_cost_tensor(t, q, w, m, p, 0, R, D).reshape(R * D, B)
+
+
+def pairhmm_scores_cost_plain(tgt, qual, win, opn, ext, mask, prior, *,
+                              pad: int = 8,
+                              nuc_prior: int = DEFAULT_NUC_PRIOR
+                              ) -> torch.Tensor:
+    """Plain twin of the cost kernel (Pallas v2: the XLA wavefront over a
+    whole match-cost tensor) on any device: (B,) int32 scores."""
+    _check_shapes(tgt, qual, win, opn, ext, mask, prior, pad)
+    R = tgt.shape[1]
+    D = 2 * pad
+    cm = match_cost_tensor(tgt, qual, win, mask, prior, pad=pad)
+    opnT, extT = _kernel_layout(opn, ext)
+    return _wavefront(lambda y: cm[(y - 1) * D:y * D], opnT, extT, R, pad,
+                      nuc_prior)
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernel (csrc/pairhmm.cu)
+# CUDA kernels (csrc/pairhmm.cu, csrc/pairhmm_lanes.cu, csrc/pairhmm_cost.cu)
 # ---------------------------------------------------------------------------
 
 @dataclass
 class KernelCounts:
-    """Launches of the CUDA kernel and the pairs they scored."""
+    """Launches of one CUDA kernel and the pairs they scored."""
 
     launches: int = 0
     pairs: int = 0
+    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False,
+                                  compare=False)
+
+    def add(self, pairs: int) -> None:
+        with self._lock:
+            self.launches += 1
+            self.pairs += pairs
 
     def reset(self) -> None:
-        self.launches = 0
-        self.pairs = 0
+        with self._lock:
+            self.launches = 0
+            self.pairs = 0
 
 
-COUNTS = KernelCounts()
+COUNTS = KernelCounts()          # csrc/pairhmm.cu (Pallas v12 and v9)
+COUNTS_LANES = KernelCounts()    # csrc/pairhmm_lanes.cu (Pallas v8)
+COUNTS_COST = KernelCounts()     # csrc/pairhmm_cost.cu (Pallas v2)
+KERNEL_COUNTS = {"pairhmm": COUNTS, "pairhmm_lanes": COUNTS_LANES,
+                 "pairhmm_cost": COUNTS_COST}
 
-_lib = None
+# kernel -> (C entry point, device pointers including the output); every
+# entry point then takes B, R, W, pad, nuc_prior and the stream
+_ENTRY = {"pairhmm": ("pairhmm_launch", 8),
+          "pairhmm_lanes": ("pairhmm_lanes_launch", 8),
+          "pairhmm_cost": ("pairhmm_cost_launch", 4)}
+_libs: dict = {}
 
 
-def kernel_library():
-    """Build (first call only) and load the kernel's shared library."""
-    global _lib
-    if _lib is None:
+def kernel_library(name: str = "pairhmm"):
+    """Build (first call only) and load csrc/<name>.cu's shared library."""
+    lib = _libs.get(name)
+    if lib is None:
         from ..._build import CSRC, build, nvcc_path
-        src = CSRC / "pairhmm.cu"
+        src = CSRC / f"{name}.cu"
         path = build(
-            "pairhmm", [src],
+            name, [src],
             lambda out: [nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
                          "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                          "-Xptxas", "-v", src, "-o", out],
             ".so")
         lib = ctypes.CDLL(str(path))
-        lib.pairhmm_launch.restype = ctypes.c_int
-        lib.pairhmm_launch.argtypes = (
-            [ctypes.c_void_p] * 8
-            + [ctypes.c_int] * 5
-            + [ctypes.c_void_p])
-        _lib = lib
-    return _lib
+        entry, n_ptr = _ENTRY[name]
+        fn = getattr(lib, entry)
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p])
+        _libs[name] = lib
+    return lib
+
+
+def _launch(name: str, tensors: list[torch.Tensor], B: int, R: int, W: int,
+            pad: int, nuc_prior: int) -> torch.Tensor:
+    """One launch of kernel `name` on contiguous int32 tensors of one CUDA
+    device; counts it in KERNEL_COUNTS[name]."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"{name} tracks must be contiguous int32 on {dev}")
+    if dev.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {dev}")
+    out = torch.empty(B, dtype=torch.int32, device=dev)
+    if B == 0:
+        return out
+    fn = getattr(kernel_library(name), _ENTRY[name][0])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*(t.data_ptr() for t in tensors), out.data_ptr(), B, R, W,
+                 pad, nuc_prior, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    KERNEL_COUNTS[name].add(B)
+    return out
+
+
+def _require_cuda(name: str, t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {t.device}")
 
 
 def pairhmm_scores_cuda(tgt, qual, win, opn, ext, mask, prior, *, pad: int = 8,
                         nuc_prior: int = DEFAULT_NUC_PRIOR) -> torch.Tensor:
-    """Launch the CUDA kernel on CUDA int32 tensors: (B,) int32 scores."""
+    """Launch csrc/pairhmm.cu on CUDA int32 tensors: (B,) int32 scores."""
     _check_shapes(tgt, qual, win, opn, ext, mask, prior, pad)
-    if tgt.device.type != "cuda":
-        raise ValueError(f"pairhmm_scores_cuda needs CUDA tensors, got {tgt.device}")
+    _require_cuda("pairhmm_scores_cuda", tgt)
     # kernel layout (rows, B): a warp's 32 threads read 32 adjacent pairs
-    tracks = [a.to(torch.int32).t().contiguous()
-              for a in (tgt, qual, win, opn, ext, mask, prior)]
-    return launch_kernel(tracks, pad=pad, nuc_prior=nuc_prior)
+    return launch_kernel(_kernel_layout(tgt, qual, win, opn, ext, mask, prior),
+                         pad=pad, nuc_prior=nuc_prior)
 
 
 def launch_kernel(tracks: list[torch.Tensor], *, pad: int,
                   nuc_prior: int = DEFAULT_NUC_PRIOR) -> torch.Tensor:
-    """One kernel launch on kernel-layout tracks: tgt/qual (R, B) and
-    win/opn/ext/mask/prior (W, B), contiguous int32 on one CUDA device."""
+    """One launch of csrc/pairhmm.cu on kernel-layout tracks: tgt/qual
+    (R, B) and win/opn/ext/mask/prior (W, B), contiguous int32 on one CUDA
+    device."""
     R, B = tracks[0].shape
     W = tracks[2].shape[0]
-    dev = tracks[0].device
-    for t in tracks:
-        if (t.device != dev or t.dtype != torch.int32 or not t.is_contiguous()
-                or t.shape[1] != B):
-            raise ValueError("kernel tracks must be contiguous int32 (rows, B) "
-                             f"on {dev}")
-    out = torch.empty(B, dtype=torch.int32, device=dev)
-    if B == 0:
-        return out
-    lib = kernel_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.pairhmm_launch(*(t.data_ptr() for t in tracks),
-                                 out.data_ptr(), B, R, W, pad, nuc_prior,
-                                 stream)
-    if err != 0:
-        raise RuntimeError(f"pairhmm kernel launch failed: CUDA error {err}")
-    COUNTS.launches += 1
-    COUNTS.pairs += B
-    return out
+    if any(t.shape[1] != B for t in tracks):
+        raise ValueError("kernel tracks must all be (rows, B)")
+    return _launch("pairhmm", tracks, B, R, W, pad, nuc_prior)
+
+
+def pairhmm_scores_lanes_cuda(tgt, qual, win, opn, ext, mask, prior, *,
+                              pad: int = 8,
+                              nuc_prior: int = DEFAULT_NUC_PRIOR
+                              ) -> torch.Tensor:
+    """Launch csrc/pairhmm_lanes.cu on CUDA int32 tensors: (B,) int32
+    scores. The kernel reads batch-major tracks, so nothing is transposed."""
+    _check_shapes(tgt, qual, win, opn, ext, mask, prior, pad)
+    _require_cuda("pairhmm_scores_lanes_cuda", tgt)
+    return launch_lanes([a.to(torch.int32).contiguous()
+                         for a in (tgt, qual, win, opn, ext, mask, prior)],
+                        pad=pad, nuc_prior=nuc_prior)
+
+
+def launch_lanes(tracks: list[torch.Tensor], *, pad: int,
+                 nuc_prior: int = DEFAULT_NUC_PRIOR) -> torch.Tensor:
+    """One launch of csrc/pairhmm_lanes.cu on batch-major tracks: tgt/qual
+    (B, R) and win/opn/ext/mask/prior (B, W), contiguous int32 on one CUDA
+    device."""
+    B, R = tracks[0].shape
+    W = tracks[2].shape[1]
+    if any(t.shape[0] != B for t in tracks):
+        raise ValueError("lanes tracks must all be (B, columns)")
+    return _launch("pairhmm_lanes", tracks, B, R, W, pad, nuc_prior)
+
+
+def pairhmm_scores_cost_cuda(tgt, qual, win, opn, ext, mask, prior, *,
+                             pad: int = 8,
+                             nuc_prior: int = DEFAULT_NUC_PRIOR
+                             ) -> torch.Tensor:
+    """Build the match-cost tensor with torch (as XLA does outside Pallas v2)
+    and launch csrc/pairhmm_cost.cu on it: (B,) int32 scores."""
+    _check_shapes(tgt, qual, win, opn, ext, mask, prior, pad)
+    _require_cuda("pairhmm_scores_cost_cuda", tgt)
+    cm = match_cost_tensor(tgt, qual, win, mask, prior, pad=pad)
+    opnT, extT = _kernel_layout(opn, ext)
+    return launch_cost(cm, opnT, extT, pad=pad, nuc_prior=nuc_prior)
+
+
+def launch_cost(cm: torch.Tensor, opn: torch.Tensor, ext: torch.Tensor, *,
+                pad: int, nuc_prior: int = DEFAULT_NUC_PRIOR) -> torch.Tensor:
+    """One launch of csrc/pairhmm_cost.cu: cm (R*D, B) and opn/ext (W, B),
+    contiguous int32 on one CUDA device."""
+    D = 2 * pad
+    RD, B = cm.shape
+    W = opn.shape[0]
+    if RD % D or ext.shape != opn.shape or opn.shape[1] != B:
+        raise ValueError(f"cm {tuple(cm.shape)} / opn {tuple(opn.shape)} / "
+                         f"ext {tuple(ext.shape)} do not fit band {D}")
+    return _launch("pairhmm_cost", [cm, opn, ext], B, RD // D, W, pad,
+                   nuc_prior)
+
+
+def unrolled_hmm() -> bool:
+    """OCTOPUS_TPU_UNROLLED_HMM=1 selects the v8 scorer, as in the
+    reference's dispatcher."""
+    return os.environ.get("OCTOPUS_TPU_UNROLLED_HMM") == "1"
+
+
+def scorer_name(device: torch.device) -> str:
+    """The scorer `pairhmm_scores` runs on `device` now: a kernel name on
+    CUDA, its plain twin's name on the CPU."""
+    kernel = "pairhmm_lanes" if unrolled_hmm() else "pairhmm"
+    return kernel if device.type == "cuda" else kernel + "_plain"
 
 
 def pairhmm_scores(tgt, qual, win, opn, ext, mask, prior, *, pad: int = 8,
@@ -233,25 +447,39 @@ def pairhmm_scores(tgt, qual, win, opn, ext, mask, prior, *, pad: int = 8,
 
     The default is the device of torch inputs, and "cuda" for numpy inputs,
     which raises without CUDA; pass device="cpu" to run on the CPU. Inputs
-    are copied to `device`; the CUDA kernel runs on a CUDA device and the
-    plain scorer on the CPU."""
+    are copied to `device`. A CUDA device runs csrc/pairhmm.cu, or
+    csrc/pairhmm_lanes.cu under OCTOPUS_TPU_UNROLLED_HMM=1; the CPU runs
+    the kernel's plain twin."""
     if device is None:
         device = tgt.device if isinstance(tgt, torch.Tensor) else "cuda"
     dev = resolve_device(device)
     args = [torch.as_tensor(a).to(device=dev, dtype=torch.int32)
             for a in (tgt, qual, win, opn, ext, mask, prior)]
-    if dev.type == "cuda":
-        return pairhmm_scores_cuda(*args, pad=pad, nuc_prior=nuc_prior)
-    return pairhmm_scores_plain(*args, pad=pad, nuc_prior=nuc_prior)
+    fn = {"pairhmm": pairhmm_scores_cuda,
+          "pairhmm_plain": pairhmm_scores_plain,
+          "pairhmm_lanes": pairhmm_scores_lanes_cuda,
+          "pairhmm_lanes_plain": pairhmm_scores_lanes_plain}[scorer_name(dev)]
+    return fn(*args, pad=pad, nuc_prior=nuc_prior)
 
 
 __all__ = [
     "pairhmm_scores",
     "pairhmm_scores_plain",
     "pairhmm_scores_cuda",
+    "pairhmm_scores_lanes_plain",
+    "pairhmm_scores_lanes_cuda",
+    "pairhmm_scores_cost_plain",
+    "pairhmm_scores_cost_cuda",
+    "match_cost_tensor",
     "launch_kernel",
+    "launch_lanes",
+    "launch_cost",
     "kernel_library",
+    "scorer_name",
     "COUNTS",
+    "COUNTS_LANES",
+    "COUNTS_COST",
+    "KERNEL_COUNTS",
     "KernelCounts",
     "PAD_CODE",
     "INF",

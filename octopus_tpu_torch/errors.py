@@ -77,6 +77,22 @@ class ProgramError(OctopusError):
 # concrete user errors
 # ---------------------------------------------------------------------------
 
+class NotPortedError(UserError):
+    """A feature of the reference package that this port does not run yet.
+
+    Named by its ROADMAP.md item, so that a run never silently drops an
+    option the user asked for."""
+
+    def __init__(self, feature: str, roadmap_item: str, *,
+                 where: str = "options"):
+        super().__init__(
+            f"{feature} is not ported to octopus_tpu_torch yet",
+            where=where,
+            help=f"see ROADMAP.md, Queue 1: {roadmap_item}; the reference "
+                 "package's octopus-tpu command runs it")
+        self.feature = feature
+
+
 class MissingFileError(UserError):
     """missing_file_error.cpp:22-44."""
 
@@ -243,7 +259,7 @@ def format_error(err: OctopusError) -> str:
 
 __all__ = [
     "OctopusError", "UserError", "SystemError_", "ProgramError",
-    "MissingFileError", "MissingIndexError", "MalformedFileError",
+    "NotPortedError", "MissingFileError", "MissingIndexError", "MalformedFileError",
     "UnwritableFileError", "BadRegionError", "ConflictingOptionsError",
     "MissingSampleError", "CallingBug", "format_error",
 ]

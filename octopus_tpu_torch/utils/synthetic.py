@@ -2,11 +2,16 @@
 
 Simulated samples stand in for external truth sets: a random reference,
 truth variants at human-like rates, and error-bearing reads with exact
-CIGARs derived from the simulated haplotype structure. Everything stays in
-memory; reads come back as tuples for make_read_batch.
+CIGARs derived from the simulated haplotype structure. The in-memory
+functions return reads as tuples for make_read_batch; write_reference,
+write_sample_bam and simulate_diploid write a FASTA and an indexed BAM for
+the CLI, drawing the same random numbers as the reference package's
+functions of the same names.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -83,6 +88,35 @@ def sample_read_tuples(hap_pieces_pair, n_ref, depth, read_len, rng,
     return reads
 
 
+def write_reference(tmp, seq, name="chr1"):
+    fa = os.path.join(tmp, "ref.fa")
+    with open(fa, "w") as fh:
+        fh.write(f">{name}\n")
+        for i in range(0, len(seq), 70):
+            fh.write(seq[i:i + 70] + "\n")
+    return fa
+
+
+def write_sample_bam(tmp, name, hap_pieces_pair, n_ref, depth, read_len, rng,
+                     contig="chr1", err=0.001):
+    """Simulate a diploid sample from two haplotype piece-lists -> BAM path."""
+    reads = sample_read_tuples(hap_pieces_pair, n_ref, depth, read_len, rng,
+                               err=err)
+    return _write_bam(tmp, name, reads, contig, n_ref)
+
+
+def _write_bam(tmp, name, reads, contig, n_ref):
+    """Read tuples as a sorted, BAI-indexed BAM of one sample."""
+    from ..basics.reads import make_read_batch
+    from ..io.bam_writer import BamWriter, build_bai
+    batch = make_read_batch(contig, reads).sorted_by_begin()
+    bam = os.path.join(tmp, f"{name}.bam")
+    with BamWriter(bam, [contig], [n_ref], samples=[name]) as w:
+        w.write_batch(batch, sample=name)
+    build_bai(bam)
+    return bam
+
+
 def random_sequence(rng, n):
     return "".join("ACGT"[c] for c in rng.integers(0, 4, n))
 
@@ -137,6 +171,17 @@ def simulate_diploid_reads(kb=100, depth=30, read_len=150, seed=11,
     return seq, reads, truth, n
 
 
+def simulate_diploid(tmp, kb=100, depth=30, read_len=150, seed=11,
+                     spacing=(600, 1800), sample="SIM", err=0.001):
+    """Reference FASTA + one diploid BAM + truth dict {pos: (kind, zygosity)}
+    (the reads of simulate_diploid_reads, written to disk)."""
+    seq, reads, truth, n = simulate_diploid_reads(
+        kb=kb, depth=depth, read_len=read_len, seed=seed, spacing=spacing,
+        err=err)
+    fa = write_reference(tmp, seq)
+    return fa, _write_bam(tmp, sample, reads, "chr1", n), truth, n
+
+
 def truth_to_vcf(truth: dict, seq: str, path: str, contig="chr1") -> str:
     """Write a truth dict as a minimal VCF usable for labelling/eval."""
     lines = ["##fileformat=VCFv4.3",
@@ -158,6 +203,7 @@ def truth_to_vcf(truth: dict, seq: str, path: str, contig="chr1") -> str:
 
 __all__ = [
     "flatten_haplotype", "read_from_flat", "sample_read_tuples",
-    "random_sequence", "random_variant", "apply_variant",
+    "write_reference", "write_sample_bam", "random_sequence",
+    "random_variant", "apply_variant", "simulate_diploid",
     "simulate_diploid_reads", "truth_to_vcf",
 ]

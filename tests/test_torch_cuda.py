@@ -83,8 +83,19 @@ def random_batch(seed, B, R, pad):
     return [np.ascontiguousarray(a, np.int32) for a in tracks]
 
 
-@pytest.mark.parametrize("B,R,pad", [(1000, 60, 8), (333, 60, 16),
-                                     (257, 60, 32), (200, 1500, 8)])
+SHAPES = [(1000, 60, 8), (333, 60, 16), (257, 60, 32), (200, 1500, 8)]
+
+# kernel -> (CUDA wrapper, plain twin, launch counter)
+KERNELS = {
+    "pairhmm": (pb.pairhmm_scores_cuda, pb.pairhmm_scores_plain, pb.COUNTS),
+    "pairhmm_lanes": (pb.pairhmm_scores_lanes_cuda,
+                      pb.pairhmm_scores_lanes_plain, pb.COUNTS_LANES),
+    "pairhmm_cost": (pb.pairhmm_scores_cost_cuda,
+                     pb.pairhmm_scores_cost_plain, pb.COUNTS_COST),
+}
+
+
+@pytest.mark.parametrize("B,R,pad", SHAPES)
 def test_kernel_matches_plain(cuda, B, R, pad):
     args = [torch.from_numpy(a).to(cuda) for a in random_batch(B + R, B, R, pad)]
     before = pb.COUNTS.launches
@@ -95,6 +106,20 @@ def test_kernel_matches_plain(cuda, B, R, pad):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("B,R,pad", SHAPES + [(1, 33, 8), (17, 160, 16)])
+@pytest.mark.parametrize("kernel", ["pairhmm_lanes", "pairhmm_cost"])
+def test_new_kernels_match_their_plain_twins(cuda, kernel, B, R, pad):
+    wrapper, twin, counts = KERNELS[kernel]
+    args = [torch.from_numpy(a).to(cuda) for a in random_batch(B + R, B, R, pad)]
+    before = counts.launches
+    got = wrapper(*args, pad=pad)
+    assert counts.launches == before + 1
+    want = twin(*args, pad=pad)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, pb.pairhmm_scores_plain(*args, pad=pad))
+
+
 @pytest.mark.parametrize("kind", sorted(GOLDEN_CASES))
 def test_kernel_matches_golden_binary(cuda, kind):
     if not os.path.exists(HARNESS):
@@ -103,6 +128,29 @@ def test_kernel_matches_golden_binary(cuda, kind):
     want = run_reference(cases, pad=pad)
     got = pb.pairhmm_scores(*pack_cases(cases, pad), pad=pad, device=cuda)
     assert got.cpu().tolist() == want
+
+
+@pytest.mark.parametrize("kind", sorted(GOLDEN_CASES))
+@pytest.mark.parametrize("kernel", ["pairhmm_lanes", "pairhmm_cost"])
+def test_new_kernels_match_golden_binary(cuda, kernel, kind):
+    if not os.path.exists(HARNESS):
+        pytest.skip("golden harness not built")
+    cases, pad = GOLDEN_CASES[kind]()
+    want = run_reference(cases, pad=pad)
+    args = [torch.from_numpy(a).to(cuda) for a in pack_cases(cases, pad)]
+    got = KERNELS[kernel][0](*args, pad=pad)
+    assert got.cpu().tolist() == want
+
+
+def test_dispatch_launches_lanes_kernel_when_unrolled(cuda, monkeypatch):
+    monkeypatch.setenv("OCTOPUS_TPU_UNROLLED_HMM", "1")
+    host = random_batch(2, 64, 40, 8)
+    before = (pb.COUNTS.launches, pb.COUNTS_LANES.launches)
+    got = pb.pairhmm_scores(*host, pad=8, device=cuda)
+    assert (pb.COUNTS.launches, pb.COUNTS_LANES.launches) == (
+        before[0], before[1] + 1)
+    want = pb.pairhmm_scores_plain(*(torch.from_numpy(a) for a in host), pad=8)
+    assert torch.equal(got.cpu(), want)
 
 
 def test_dispatch_launches_on_cuda(cuda):
@@ -147,3 +195,28 @@ def test_caller_on_cuda_writes_the_cpu_records(cuda):
         if device == "cuda":
             assert pb.COUNTS.launches > before
     assert lines["cuda"] == lines["cpu"] and lines["cpu"]
+
+
+@pytest.mark.parametrize("unrolled", [False, True])
+def test_cli_on_cuda_writes_the_cpu_records(cuda, tmp_path, monkeypatch,
+                                            unrolled):
+    from octopus_tpu_torch.cli import main
+    from octopus_tpu_torch.core.likelihood import likelihood_array as la
+    from octopus_tpu_torch.utils.synthetic import simulate_diploid
+    fa, bam, _, _ = simulate_diploid(str(tmp_path), kb=5, seed=5,
+                                     spacing=(150, 450))
+    monkeypatch.setenv("OCTOPUS_TPU_HOST_HMM_MAX", "0")
+    if unrolled:
+        monkeypatch.setenv("OCTOPUS_TPU_UNROLLED_HMM", "1")
+    kernel = "pairhmm_lanes" if unrolled else "pairhmm"
+    lines = {}
+    for device in ("cpu", "cuda"):
+        out = tmp_path / f"{device}.vcf"
+        la.ROUTING.reset()
+        assert main(["-R", fa, "-I", bam, "-o", str(out),
+                     "--device", device]) == 0
+        lines[device] = [line for line in out.read_text().splitlines()
+                         if not line.startswith("##")]
+    assert la.ROUTING.job_sets[("populate", kernel)] > 0
+    assert la.ROUTING.job_sets[("assignment", kernel)] > 0
+    assert lines["cuda"] == lines["cpu"] and len(lines["cpu"]) > 3

@@ -3,19 +3,30 @@
 
     python3 chip_smoke.py
 
-Four phases, each printing JSON lines:
+Five phases, each printing JSON lines:
 
 1. build: g++ builds the host extension and nvcc builds the three CUDA
    kernels (csrc/pairhmm.cu, pairhmm_lanes.cu, pairhmm_cost.cu), all from
    the sources in the checkout, all at the same time; ptxas registers and
-   spills per kernel and band;
+   spills per kernel, band and variant, and each variant's shared memory;
 2. kernels: every kernel runs on random batches made from a numpy seed, at
    bench.py's shape, at bands 16 and 32, at R = 2000 and at the main path's
-   own shapes (a few to a few hundred pairs, R = 160), and must equal its
-   plain PyTorch twin on the same CUDA tensors bit for bit; kernel, call
-   and plain twin are timed with CUDA events (median of 7 runs after a
-   warm-up, plain of 5);
-3. main_path: a simulated 30x diploid sample is called in memory through
+   own shapes (1 to 519 pairs, R = 160), and must equal its plain PyTorch
+   twin on the same CUDA tensors bit for bit, in every variant the two
+   main-path kernels are built with (csrc/pairhmm.cu: T threads a pair,
+   split chain or wavefront; csrc/pairhmm_lanes.cu: two lane widths);
+   kernel, call, plain twin and each variant are timed with CUDA events
+   (median of 7 runs after a warm-up, plain of 5), beside the variant the
+   wrapper's rule chose, one trivial launch (launch_floor_ms), 20 launches
+   back to back (stream_ms), the host's cost of one launch (host_ms) and,
+   below 4096 pairs, 20 launches replayed from a CUDA graph (graph_ms: card
+   time only). A sweep of launch sizes from 1024 to 32768 pairs (R = 160,
+   bands 8 and 16) times the latency variants (wavefront, full lane width)
+   against the throughput ones (split chain, half lane width), which sets
+   the wrapper's WAVE_BELOW (variant_sweep);
+3. gate_sweep: job sets of 1 to 1024 pairs (R = 160, band 8) scored by the
+   host DP and by the card call with its copies; the crossover;
+4. main_path: a simulated 30x diploid sample is called in memory through
    IndividualCaller on the card, window by window. A first, untimed run
    with the host-DP gate at 0 keeps every kernel launch and holds each
    one's scores against the plain version on the same tensors bit for bit.
@@ -24,7 +35,7 @@ Four phases, each printing JSON lines:
    default). Every run must write the same VCF records, each run at gate 0
    must launch the kernel, and recall and precision against the simulated
    truth must reach 0.95;
-4. cli: a simulated 30x diploid BAM (written untimed by the port's own
+5. cli: a simulated 30x diploid BAM (written untimed by the port's own
    writer) is called through octopus_tpu_torch.cli.main on the card, with
    inline threshold CSR. First two untimed runs with the host-DP gate at 0,
    one through csrc/pairhmm.cu and one with OCTOPUS_TPU_UNROLLED_HMM=1
@@ -48,6 +59,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -66,15 +78,19 @@ WINDOW_MIN = 5_000
 READ_PAD = 200           # reads fetched beyond each window edge
 INT32_OPS_PER_S = 132 * 64 * 1.98e9   # SMs x INT32 lanes x boost clock
 DRAM_BYTES_PER_S = 3.35e12
-# int32 ops the pair-HMM needs per band cell (csrc/pairhmm.cu): match cost
-# 8, M 3, I 4, deletion open 2, deletion chain 2
-OPS_PER_CELL = 19
-# the cost kernel's own work per cell: the wavefront without the 8
-# match-cost ops, which ran when the cost tensor was built
-COST_OPS_PER_CELL = OPS_PER_CELL - 8
+# the fewest int32 instructions a band cell needs on sm_90, with the DPX
+# forms: match cost 6 (three compares, each with a predicated update), M 2
+# (VIMNMX3 and an add), I 3 (an add, VIADDMNMX, nuc_prior), deletion open 2
+# (a minimum and an add), deletion chain 1 (VIADDMNMX)
+MATCH_COST_OPS = 6
+OPS_PER_CELL = MATCH_COST_OPS + 2 + 3 + 2 + 1
+# the cost kernel's own work per cell: the wavefront without the match
+# cost, which ran when the cost tensor was built
+COST_OPS_PER_CELL = OPS_PER_CELL - MATCH_COST_OPS
 # the main path's job sets: 150 bp reads in the 32-wide length bucket (R =
 # 160), a few to a few hundred pairs a launch, bands 8 and 16
-MAIN_PATH_SHAPES = [(B, 160, pad) for pad in (8, 16) for B in (1, 9, 37, 300)]
+MAIN_PATH_SHAPES = [(B, 160, pad) for pad in (8, 16)
+                    for B in (1, 9, 37, 300, 519)]
 KERNELS = ("pairhmm", "pairhmm_lanes", "pairhmm_cost")
 REPLACES = {
     "pairhmm": "octopus_tpu/core/likelihood/pairhmm_batch.py:531",
@@ -99,13 +115,26 @@ def card_line() -> str:
 # phase 1: build
 # ---------------------------------------------------------------------------
 
-def ptxas_table(log: str) -> dict:
-    """Registers and spill bytes per band from nvcc's -Xptxas -v log."""
+# each kernel's template parameters, in order
+TEMPLATE_PARAMS = {"pairhmm": ("D", "T"),
+                   "pairhmm_wave": ("D", "W"),
+                   "pairhmm_lanes": ("D", "LW"),
+                   "pairhmm_cost": ("D",)}
+
+
+def ptxas_table(log: str, kernel: str) -> dict:
+    """Registers and spill bytes per instantiation (e.g. "D16_T4") from
+    nvcc's -Xptxas -v log."""
     ptxas = {}
     current = None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            current = "D" + line.split("ILi")[1].split("E")[0]
+            m = re.search(r"I((?:L[ib]\d+E)+)E", line)
+            values = re.findall(r"L[ib](\d+)E", m.group(1)) if m else []
+            names = TEMPLATE_PARAMS[kernel]
+            if "_wave_kernel" in line:
+                names = TEMPLATE_PARAMS[kernel + "_wave"]
+            current = "_".join(f"{k}{v}" for k, v in zip(names, values)) or None
         elif current and "spill stores" in line:
             parts = line.split()
             ptxas[current] = {"spill_store_bytes": int(parts[4]),
@@ -113,6 +142,23 @@ def ptxas_table(log: str) -> dict:
         elif current and "Used" in line and "registers" in line:
             ptxas[current]["registers"] = int(line.split("Used")[1].split()[0])
     return ptxas
+
+
+def smem_table(pb) -> dict:
+    """Dynamic shared memory of one block (one warp) per kernel, band and
+    variant."""
+    out = {}
+    for pad in pb.PADS:
+        D = 2 * pad
+        for T in pb.THREADS:
+            if T <= D:
+                out[f"pairhmm_D{D}_T{T}"] = pb.smem_bytes("pairhmm", pad, T, 0)
+            if pb.wave_ok(T, pad):
+                out[f"pairhmm_D{D}_W{T}"] = pb.smem_bytes("pairhmm", pad, T, 1)
+        for LW in pb.lanes_widths(pad):
+            out[f"pairhmm_lanes_D{D}_LW{LW}"] = pb.smem_bytes("pairhmm_lanes",
+                                                              pad, LW)
+    return out
 
 
 def phase_build():
@@ -127,7 +173,9 @@ def phase_build():
           "host_extension_loaded": "octopus_tpu_torch._native" in sys.modules,
           "host_extension_s": _build.BUILDS["_native"]["seconds"],
           "nvcc_s": {n: _build.BUILDS[n]["seconds"] for n in KERNELS},
-          "ptxas": {n: ptxas_table(_build.BUILDS[n]["log"]) for n in KERNELS}})
+          "ptxas": {n: ptxas_table(_build.BUILDS[n]["log"], n)
+                    for n in KERNELS},
+          "smem_bytes": smem_table(pb)})
 
 
 # ---------------------------------------------------------------------------
@@ -182,6 +230,51 @@ def cuda_ms(fn, reps=7):
     return statistics.median(times)
 
 
+def stream_ms(fn, n=20):
+    """CUDA-event time a launch over n back-to-back launches: the body's
+    time wherever it exceeds the host's cost of one launch."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(n):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / n
+
+
+def graph_ms(fn, n=20):
+    """Card time of one launch: n launches captured in a CUDA graph and
+    replayed, timed with CUDA events, over n. No host work between launches,
+    so this is the kernel body where stream_ms is held back by the host."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    return cuda_ms(graph.replay) / n
+
+
+def host_ms(fn, n=20):
+    """Host-clock time of one call that only enqueues work, over n calls."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = (time.perf_counter() - t0) / n * 1e3
+    torch.cuda.synchronize()
+    return t
+
+
 def pairhmm_bound(B, R, pad):
     """Least time for B pairs: the larger of OPS_PER_CELL int32 ops per
     cell (plus row 0's deletion chain and the last row's band minimum, 3
@@ -214,12 +307,11 @@ def cost_bound(B, R, pad):
 def kernel_variants(pb, args, pad):
     """kernel -> (one launch on prepared inputs, the call, its plain twin,
     the bound function) for batch-major CUDA tracks `args`."""
-    tracks = [a.t().contiguous() for a in args]
     cm = pb.match_cost_tensor(args[0], args[1], args[2], args[5], args[6],
                               pad=pad)
-    opnT, extT = tracks[3], tracks[4]
+    opnT, extT = (a.t().contiguous() for a in args[3:5])
     return {
-        "pairhmm": (lambda: pb.launch_kernel(tracks, pad=pad),
+        "pairhmm": (lambda: pb.launch_kernel(args, pad=pad),
                     lambda: pb.pairhmm_scores_cuda(*args, pad=pad),
                     lambda: pb.pairhmm_scores_plain(*args, pad=pad),
                     pairhmm_bound),
@@ -235,27 +327,116 @@ def kernel_variants(pb, args, pad):
     }
 
 
-def phase_kernels():
+def build_variants(pb, args, pad):
+    """kernel -> {variant name: one launch}: every T (threads a pair) of
+    csrc/pairhmm.cu, split chain ("T4") and wavefront ("W4"), and every LW
+    (lanes a pair) of csrc/pairhmm_lanes.cu ("LW16")."""
+    D = 2 * pad
+    out = {"pairhmm": {}, "pairhmm_lanes": {}}
+    for T in pb.THREADS:
+        if T <= D:
+            out["pairhmm"][f"T{T}"] = (
+                lambda T=T: pb.launch_kernel(args, pad=pad, threads=T))
+        if pb.wave_ok(T, pad):
+            out["pairhmm"][f"W{T}"] = (
+                lambda T=T: pb.launch_kernel(args, pad=pad, threads=T,
+                                             wave=True))
+    for LW in pb.lanes_widths(pad):
+        out["pairhmm_lanes"][f"LW{LW}"] = (
+            lambda LW=LW: pb.launch_lanes(args, pad=pad, lanes=LW))
+    return out
+
+
+def chosen_variant(pb, kernel, B, pad):
+    if kernel == "pairhmm":
+        T = pb.pairhmm_threads(B, pad)
+        return f"{'W' if pb.pairhmm_wave(B, pad) else 'T'}{T}"
+    return f"LW{pb.lanes_width(B, pad)}"
+
+
+def launch_floor_ms():
+    """CUDA-event time of one trivial launch (a one-word fill)."""
+    import torch
+    x = torch.zeros(1, dtype=torch.int32, device="cuda")
+    return cuda_ms(lambda: x.fill_(0), reps=15)
+
+
+KERNEL_CASES = [("bench_R150_band8", 65536, 150, 8, False),
+                ("R150_band16", 65536, 150, 16, True),
+                ("R150_band32", 65536, 150, 32, True),
+                ("long_R2000_band8", 4096, 2000, 8, False)]
+# the main path's own shapes, ragged batch edges (B % 32 != 0) included
+KERNEL_CASES += [(f"main_B{B}_R{R}_band{pad}", B, R, pad, B % 2 == 1)
+                 for B, R, pad in MAIN_PATH_SHAPES]
+# launch sizes between the main path's and the bench shape's, for the
+# wrapper's WAVE_BELOW
+SWEEP_SIZES = (1024, 2048, 4096, 8192, 16384, 32768)
+KERNEL_CASES += [(f"sweep_B{B}_R160_band{pad}", B, 160, pad, False)
+                 for pad in (8, 16) for B in SWEEP_SIZES]
+
+
+def variant_sweep(results):
+    """Per band, the fastest latency variant (csrc/pairhmm.cu's wavefront,
+    csrc/pairhmm_lanes.cu at full lane width) against the fastest
+    throughput variant (split chain, half lane width) at each launch size
+    of the sweep and the bench shape; the least size from which the
+    throughput variant is faster at every larger size. WAVE_BELOW is set
+    from it."""
+    def latency(kernel, variant, variants):
+        if kernel == "pairhmm":
+            return variant.startswith("W")
+        return variant == max(variants, key=lambda v: int(v[2:]))
+
+    rows = {}
+    for kernel in ("pairhmm", "pairhmm_lanes"):
+        for r in results[kernel]:
+            if not (r["case"].startswith("sweep_") or r["R"] == 150):
+                continue
+            vm = r["variant_ms"]
+            split = collections.defaultdict(list)
+            for v, ms in vm.items():
+                split[latency(kernel, v, vm)].append(ms)
+            rows.setdefault((kernel, r["pad"]), []).append(
+                {"B": r["B"], "R": r["R"], "latency_ms": min(split[True]),
+                 "throughput_ms": min(split[False]), "chosen": r["chosen"]})
+    out = []
+    for (kernel, pad), rs in sorted(rows.items()):
+        rs.sort(key=lambda x: x["B"])
+        from_B = None
+        for i, x in enumerate(rs):
+            if all(y["throughput_ms"] < y["latency_ms"] for y in rs[i:]):
+                from_B = x["B"]
+                break
+        out.append({"kernel": kernel, "pad": pad, "rows": rs,
+                    "throughput_faster_from_B": from_B})
+    emit({"phase": "variant_sweep", "sweeps": out})
+    return out
+
+
+def phase_kernels(cases=KERNEL_CASES):
     import torch
     from octopus_tpu_torch.core.likelihood import pairhmm_batch as pb
     rng = np.random.default_rng(SEED)
-    cases = [("bench_R150_band8", 65536, 150, 8, False),
-             ("R150_band16", 65536, 150, 16, True),
-             ("R150_band32", 65536, 150, 32, True),
-             ("long_R2000_band8", 4096, 2000, 8, False)]
-    # the main path's own shapes, ragged batch edges (B % 128 != 0) included
-    cases += [(f"main_B{B}_R{R}_band{pad}", B, R, pad, B % 2 == 1)
-              for B, R, pad in MAIN_PATH_SHAPES]
     results = {k: [] for k in KERNELS}
+    floor_ms = launch_floor_ms()
     for name, B, R, pad, heavy in cases:
         host = random_batch(rng, B, R, pad, heavy_indel=heavy)
         args = [torch.from_numpy(a).cuda() for a in host]
+        variants = build_variants(pb, args, pad)
         for kernel, (launch, call, plain, bound) in kernel_variants(
                 pb, args, pad).items():
             got = call()
             want = plain()
             torch.cuda.synchronize()
             err = int((got.long() - want.long()).abs().max())
+            variant_ms, variant_graph_ms = {}, {}
+            for vname, vlaunch in variants.get(kernel, {}).items():
+                vgot = vlaunch()
+                torch.cuda.synchronize()
+                err = max(err, int((vgot.long() - want.long()).abs().max()))
+                variant_ms[vname] = cuda_ms(vlaunch)
+                if B < 4096:
+                    variant_graph_ms[vname] = graph_ms(vlaunch)
             if err != 0:
                 raise AssertionError(f"{kernel} {name}: kernel differs from "
                                      f"its plain twin by {err}")
@@ -268,12 +449,75 @@ def phase_kernels():
                    "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
                    "pairs_per_s": B / (wrapper_ms / 1e3),
                    "cells_per_s": B * R * 2 * pad / (wrapper_ms / 1e3),
-                   "bound_ms": bound_ms, "bound_by": bound_by}
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "launch_floor_ms": floor_ms}
+            if variant_ms:
+                row["chosen"] = chosen_variant(pb, kernel, B, pad)
+                row["variant_ms"] = variant_ms
+                row["stream_ms"] = stream_ms(launch)
+                row["host_ms"] = host_ms(launch)
+                if variant_graph_ms:
+                    row["variant_graph_ms"] = variant_graph_ms
+                    row["graph_ms"] = graph_ms(launch)
             emit({"phase": "kernels", **row})
             results[kernel].append(row)
-        del args
+        del args, variants
         torch.cuda.empty_cache()
     return results
+
+
+GATE_SWEEP_SIZES = (1, 4, 16, 64, 128, 256, 384, 512, 1024)
+
+
+def phase_gate_sweep(device="cuda", sizes=GATE_SWEEP_SIZES, reps=7):
+    """Job sets of n pairs (R = 160, band 8) scored both ways that
+    likelihood_array._device_scores can take them: the host DP
+    (_native.flank_banded_scores, no flanks) and the card call with its
+    copies (numpy in, pairhmm_scores, numpy out). Host-clock medians; the
+    crossover is the least n at which the card call is faster. Both give
+    the same scores."""
+    from octopus_tpu_torch._build import require_native
+    from octopus_tpu_torch.core.likelihood import pairhmm_batch as pb
+    native = require_native()
+    rng = np.random.default_rng(SEED + 1)
+    pad, R = 8, 160
+    rows = []
+    for n in sizes:
+        host = random_batch(rng, n, R, pad)
+        tgt, qual, win, opn, ext, mask, prior = host
+        W = win.shape[1]
+        lens = (tgt != pb.PAD_CODE).sum(1).astype(np.int32)
+        zeros = np.zeros(n, np.int32)
+
+        def host_dp():
+            return np.frombuffer(native.flank_banded_scores(
+                n, R, W, pad, pb.DEFAULT_NUC_PRIOR, tgt, qual, win, opn, ext,
+                mask, prior, lens, zeros, zeros), np.int32)
+
+        def card():
+            return pb.pairhmm_scores(*host, pad=pad,
+                                     device=device).cpu().numpy()
+
+        if not np.array_equal(host_dp(), card()):
+            raise AssertionError(f"gate_sweep n={n}: host DP and card differ")
+        times = {}
+        for label, fn in (("host_ms", host_dp), ("card_ms", card),
+                          ("card_ms", card), ("host_ms", host_dp)):
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                fn()
+                times.setdefault(label, []).append(
+                    (time.perf_counter() - t0) * 1e3)
+        row = {"pairs": n, "R": R, "pad": pad,
+               "host_ms": statistics.median(times["host_ms"]),
+               "card_ms": statistics.median(times["card_ms"]),
+               "threads": pb.pairhmm_threads(n, pad)}
+        rows.append(row)
+    crossover = next((r["pairs"] for r in rows
+                      if r["card_ms"] < r["host_ms"]), None)
+    emit({"phase": "gate_sweep", "device": device, "rows": rows,
+          "crossover_pairs": crossover})
+    return crossover
 
 
 # ---------------------------------------------------------------------------
@@ -346,10 +590,8 @@ def accuracy(lines, truth, tol=5):
     return recall, precision
 
 
-# kernel -> (its launcher in pairhmm_batch, whether the launcher takes
-# batch-major tracks)
-LAUNCHERS = {"pairhmm": ("launch_kernel", False),
-             "pairhmm_lanes": ("launch_lanes", True)}
+# kernel -> its launcher in pairhmm_batch (both take batch-major tracks)
+LAUNCHERS = {"pairhmm": "launch_kernel", "pairhmm_lanes": "launch_lanes"}
 
 
 @contextlib.contextmanager
@@ -357,12 +599,12 @@ def kept_launches(pb, into, kernel="pairhmm", la=None):
     """Keeps a copy of every launch of `kernel` in `into`: (tracks, pad,
     nuc_prior, scores, source), where source is the likelihood array's
     ("populate" or "assignment") when `la` is given."""
-    name, _ = LAUNCHERS[kernel]
+    name = LAUNCHERS[kernel]
     launch = getattr(pb, name)
     source = [None]
 
-    def keeping(tracks, *, pad, nuc_prior=pb.DEFAULT_NUC_PRIOR):
-        out = launch(tracks, pad=pad, nuc_prior=nuc_prior)
+    def keeping(tracks, *, pad, nuc_prior=pb.DEFAULT_NUC_PRIOR, **variant):
+        out = launch(tracks, pad=pad, nuc_prior=nuc_prior, **variant)
         into.append(([t.clone() for t in tracks], pad, nuc_prior, out.clone(),
                      source[0]))
         return out
@@ -388,20 +630,19 @@ def check_launches(pb, kept, phase, kernel="pairhmm"):
     """Every kept launch's scores against the kernel's plain twin on the
     same CUDA tensors; each launch timed alone, and all of them replayed,
     against their bounds, per source."""
-    name, batch_major = LAUNCHERS[kernel]
     plain = {"pairhmm": pb.pairhmm_scores_plain,
              "pairhmm_lanes": pb.pairhmm_scores_lanes_plain}[kernel]
-    launch = getattr(pb, name)
+    launch = getattr(pb, LAUNCHERS[kernel])
     err = 0
     by_source = collections.defaultdict(list)
     for tracks, pad, nuc_prior, got, source in kept:
-        args = tracks if batch_major else [t.t() for t in tracks]
-        want = plain(*args, pad=pad, nuc_prior=nuc_prior)
+        want = plain(*tracks, pad=pad, nuc_prior=nuc_prior)
         err = max(err, int((got.long() - want.long()).abs().max()))
-        B, R = args[0].shape
+        B, R = tracks[0].shape
         ms = cuda_ms(lambda: launch(tracks, pad=pad, nuc_prior=nuc_prior),
                      reps=3)
-        by_source[source].append((B, R, pad, ms, pairhmm_bound(B, R, pad)[0]))
+        by_source[source].append((B, R, pad, ms, pairhmm_bound(B, R, pad)[0],
+                                  chosen_variant(pb, kernel, B, pad)))
     if err != 0:
         raise AssertionError(f"{phase}: {kernel} launches differ from the "
                              f"plain twin by {err}")
@@ -423,6 +664,7 @@ def check_launches(pb, kept, phase, kernel="pairhmm"):
             "launch_ms_min": min(ms), "launch_ms_median": statistics.median(ms),
             "launch_ms_max": max(ms), "launch_ms_sum": sum(ms),
             "bound_ms_sum": sum(r[4] for r in rows),
+            "variants": dict(collections.Counter(r[5] for r in rows)),
             "largest_launch": max(rows)[:4]}
     emit({"phase": phase, "kernel": kernel, "launches": len(kept),
           "max_abs_err": err, "by_source": summary,
@@ -661,6 +903,8 @@ def main() -> int:
 
     phase_build()
     kernel_rows = phase_kernels()
+    variant_sweep(kernel_rows)
+    phase_gate_sweep()
     main_path_launches, main_path_err = phase_main_path()
     emit({"phase": "main_path_kernel_launches",
           "pairhmm": main_path_launches})

@@ -19,13 +19,15 @@ All four TPU kernels of the reference compute this one function. The port
 has three CUDA kernels, each with a plain PyTorch twin that runs on any
 device and that the CPU tests hold against the reference:
 
-* `pairhmm_scores_cuda` (csrc/pairhmm.cu, one thread per pair; replaces
+* `pairhmm_scores_cuda` (csrc/pairhmm.cu, T threads a pair in a split
+  chain or a wavefront schedule, tracks staged in shared memory; replaces
   Pallas v12 and v9) and its twin `pairhmm_scores_plain`, which ports the
-  XLA wavefront (`_hmm_rows_fast`, `_match_cost_tensor`, `_deletion_scan`);
+  XLA wavefront (`_hmm_rows_fast`, `_match_cost_tensor`, `_deletion_scan`)
+  and with threads=T runs the kernel's split chain (`_deletion_split`);
 * `pairhmm_scores_lanes_cuda` (csrc/pairhmm_lanes.cu, the band on a warp's
-  lanes; replaces Pallas v8) and its twin `pairhmm_scores_lanes_plain`,
-  which ports `_pallas_kernel_v8`'s own arithmetic (`pre = cumsum(ext)`,
-  `_min_scan`);
+  lanes, tracks staged in shared memory; replaces Pallas v8) and its twin
+  `pairhmm_scores_lanes_plain`, which ports `_pallas_kernel_v8`'s own
+  arithmetic (`pre = cumsum(ext)`, `_min_scan`);
 * `pairhmm_scores_cost_cuda` (csrc/pairhmm_cost.cu, over a match-cost
   tensor built outside the kernel; replaces Pallas v2) and its twin
   `pairhmm_scores_cost_plain`.
@@ -35,7 +37,8 @@ kernel on CUDA tensors and its twin on the CPU; with
 OCTOPUS_TPU_UNROLLED_HMM=1, as the reference's dispatcher, the v8 kernel
 on CUDA tensors and its twin on the CPU. The v2 entry points stay off the
 dispatcher, as in the reference. Each CUDA wrapper counts its launches and
-pairs in its own `KernelCounts`, and refuses CPU tensors.
+pairs in its own `KernelCounts`, and refuses CPU tensors. The kernels take
+the tracks as they are: any row length, any alignment (4-byte copies).
 
 Nothing here clamps the tracks to int8 (the TPU transfer width): like the
 XLA path, every track is full int32.
@@ -58,6 +61,7 @@ N_SCORE = 2
 PAD_CODE = 5            # read padding: mismatches everything, costs 0 at qual 0
 DEFAULT_NUC_PRIOR = 2
 PADS = (8, 16, 32)
+THREADS = (1, 2, 4, 8, 16)   # csrc/pairhmm.cu: threads a pair
 
 # rows of match costs materialised at once by the plain scorer: bounds its
 # memory at (rows * D, B) int32 whatever the read length
@@ -88,6 +92,41 @@ def _deletion_scan(bv: torch.Tensor, ev: torch.Tensor, D: int) -> torch.Tensor:
     return bv
 
 
+def _deletion_split(bv: torch.Tensor, ev: torch.Tensor, D: int,
+                    threads: int) -> torch.Tensor:
+    """The chain of `_deletion_scan` computed as csrc/pairhmm.cu computes it
+    with T = `threads` threads a pair: each thread runs the chain over its
+    K = D/T consecutive diagonals from its segment's start, without input
+    (lb) and with its ext sums (le); a log2(T)-step scan composes the
+    segments' min-plus maps x -> min(B, x + E) across threads; thread t-1's
+    map fed INF is thread t's input x, and the chain is min(lb, x + le).
+    The same integers as `_deletion_scan`."""
+    T = threads
+    K = D // T
+    B = bv.shape[1]
+    bv = bv.reshape(T, K, B)
+    ev = ev.reshape(T, K, B)
+    lb = [bv[:, 0]]
+    le = [ev[:, 0]]
+    for k in range(1, K):
+        lb.append(torch.minimum(bv[:, k], lb[-1] + ev[:, k]))
+        le.append(le[-1] + ev[:, k])
+    lb = torch.stack(lb, dim=1)
+    le = torch.stack(le, dim=1)
+    b, s = lb[:, -1], le[:, -1]
+    t = torch.arange(T, device=bv.device)[:, None]
+    step = 1
+    while step < T:
+        bp = torch.cat([torch.zeros_like(b[:step]), b[:-step]], dim=0)
+        sp = torch.cat([torch.zeros_like(s[:step]), s[:-step]], dim=0)
+        b, s = (torch.where(t >= step, torch.minimum(b, bp + s), b),
+                torch.where(t >= step, s + sp, s))
+        step *= 2
+    end = torch.minimum(b, INF + s)
+    x = torch.cat([torch.full_like(end[:1], INF), end[:-1]], dim=0)
+    return torch.minimum(lb, x[:, None] + le).reshape(D, B)
+
+
 def _min_scan(u: torch.Tensor, D: int) -> torch.Tensor:
     """Inclusive running minimum along the leading (diagonal) axis."""
     s = 1
@@ -110,17 +149,25 @@ def _match_cost_tensor(tgt, qual, win, mask, prior, y0: int, y1: int, D: int):
     return torch.where(w_g == N, torch.clamp(cm, max=N_SCORE), cm)
 
 
-def _wavefront(cm_row, opn, ext, R: int, pad: int, nuc_prior: int):
+def _wavefront(cm_row, opn, ext, R: int, pad: int, nuc_prior: int,
+               threads: int | None = None):
     """The XLA row wavefront (`_hmm_rows_fast`) over (D, B) match costs
-    cm_row(y) of rows y = 1..R and (W, B) opn/ext -> (B,) scores."""
+    cm_row(y) of rows y = 1..R and (W, B) opn/ext -> (B,) scores. With
+    `threads`, the deletion chain is `_deletion_split`'s, as
+    csrc/pairhmm.cu runs it with that many threads a pair."""
     B = opn.shape[1]
     D = 2 * pad
+    if threads is None:
+        chain = _deletion_scan
+    else:
+        def chain(bv, ev, D):
+            return _deletion_split(bv, ev, D, threads)
     d_odd = (torch.arange(D, device=opn.device) % 2 == 1)[:, None].expand(D, B)
     M = torch.zeros((D, B), dtype=torch.int32, device=opn.device)
     M_gap = torch.where(d_odd, M, torch.full_like(M, INF))
     Ii = torch.full_like(M, INF)
-    Dd = _deletion_scan(_shift_down(M_gap, INF) + _shift_down(opn[0:D], INF),
-                        _shift_down(ext[0:D], 0), D)
+    Dd = chain(_shift_down(M_gap, INF) + _shift_down(opn[0:D], INF),
+               _shift_down(ext[0:D], 0), D)
     for y in range(1, R + 1):
         off = y - 1
         cm = cm_row(y)
@@ -131,13 +178,14 @@ def _wavefront(cm_row, opn, ext, R: int, pad: int, nuc_prior: int):
         Mn = cm + torch.minimum(torch.minimum(M, Ii), Dd)
         In = nuc_prior + torch.minimum(_shift_up(M_for_gap, INF) + opn_win,
                                        _shift_up(Ii, INF) + ext_win)
-        Dd = _deletion_scan(_shift_down(torch.minimum(Mn, In), INF) + opn_win,
-                            ext_win, D)
+        Dd = chain(_shift_down(torch.minimum(Mn, In), INF) + opn_win,
+                   ext_win, D)
         M, Ii = Mn, In
     return torch.amin(torch.minimum(torch.minimum(M, Ii), Dd), dim=0)
 
 
-def _hmm_rows(tgt, qual, win, opn, ext, mask, prior, pad: int, nuc_prior: int):
+def _hmm_rows(tgt, qual, win, opn, ext, mask, prior, pad: int, nuc_prior: int,
+              threads: int | None = None):
     """Row wavefront over kernel-layout (rows, B) int32 tensors -> (B,),
     building the match costs _COST_ROWS rows at a time."""
     R = tgt.shape[0]
@@ -151,7 +199,7 @@ def _hmm_rows(tgt, qual, win, opn, ext, mask, prior, pad: int, nuc_prior: int):
                                              min(off + _COST_ROWS, R), D)
         return block["cm"][off % _COST_ROWS]
 
-    return _wavefront(cm_row, opn, ext, R, pad, nuc_prior)
+    return _wavefront(cm_row, opn, ext, R, pad, nuc_prior, threads)
 
 
 def _hmm_rows_v8(tgt, qual, win, opn, ext, mask, prior, pad: int,
@@ -221,11 +269,19 @@ def _kernel_layout(*tracks) -> list[torch.Tensor]:
 
 
 def pairhmm_scores_plain(tgt, qual, win, opn, ext, mask, prior, *, pad: int = 8,
-                         nuc_prior: int = DEFAULT_NUC_PRIOR) -> torch.Tensor:
-    """Plain PyTorch scorer on any device (the XLA wavefront): (B,) int32."""
+                         nuc_prior: int = DEFAULT_NUC_PRIOR,
+                         threads: int | None = None) -> torch.Tensor:
+    """Plain PyTorch scorer on any device (the XLA wavefront): (B,) int32.
+
+    threads=T runs the deletion chain as csrc/pairhmm.cu does with T
+    threads a pair (`_deletion_split`); the scores are the same."""
     _check_shapes(tgt, qual, win, opn, ext, mask, prior, pad)
+    if threads is not None and threads not in THREADS:
+        raise ValueError(f"threads {threads} not in {THREADS}")
+    if threads is not None and threads > 2 * pad:
+        raise ValueError(f"threads {threads} > band {2 * pad}")
     return _hmm_rows(*_kernel_layout(tgt, qual, win, opn, ext, mask, prior),
-                     pad, nuc_prior)
+                     pad, nuc_prior, threads)
 
 
 def pairhmm_scores_lanes_plain(tgt, qual, win, opn, ext, mask, prior, *,
@@ -294,12 +350,59 @@ COUNTS_COST = KernelCounts()     # csrc/pairhmm_cost.cu (Pallas v2)
 KERNEL_COUNTS = {"pairhmm": COUNTS, "pairhmm_lanes": COUNTS_LANES,
                  "pairhmm_cost": COUNTS_COST}
 
-# kernel -> (C entry point, device pointers including the output); every
-# entry point then takes B, R, W, pad, nuc_prior and the stream
-_ENTRY = {"pairhmm": ("pairhmm_launch", 8),
-          "pairhmm_lanes": ("pairhmm_lanes_launch", 8),
-          "pairhmm_cost": ("pairhmm_cost_launch", 4)}
+# kernel -> (C entry point, device pointers including the output, ints
+# after B, R, W, pad, nuc_prior); then the stream. pairhmm takes its
+# threads a pair and its schedule (split chain or wavefront);
+# pairhmm_lanes its lanes a pair.
+_ENTRY = {"pairhmm": ("pairhmm_launch", 8, 2),
+          "pairhmm_lanes": ("pairhmm_lanes_launch", 8, 1),
+          "pairhmm_cost": ("pairhmm_cost_launch", 4, 0)}
+# kernel -> (C function (pad, *variant) -> dynamic shared memory of a
+# block, number of variant ints)
+_SMEM_ENTRY = {"pairhmm": ("pairhmm_smem_bytes", 2),
+               "pairhmm_lanes": ("pairhmm_lanes_smem_bytes", 1)}
 _libs: dict = {}
+
+# The rule for both kernels' variants, from chip_smoke.py's timing of every
+# variant at the bench and main-path shapes and at 1024-32768 pairs
+# (variant_sweep; PERF.md). Below WAVE_BELOW pairs a launch is latency, not
+# work: csrc/pairhmm.cu's wavefront with two diagonals a thread (four at
+# band 32, where T stops at 16), csrc/pairhmm_lanes.cu at full lane width.
+# At and above it the batch fills the card: the split chain with
+# SPLIT_THREADS threads a pair (the fastest at the bench shape) and half
+# the lane width. No path of the port launches that many pairs today.
+WAVE_BELOW = 8192
+SPLIT_THREADS = 4
+
+
+def pairhmm_threads(B: int, pad: int) -> int:
+    """Threads a pair for a csrc/pairhmm.cu launch of B pairs at `pad`."""
+    return min(pad, THREADS[-1]) if B < WAVE_BELOW else SPLIT_THREADS
+
+
+def pairhmm_wave(B: int, pad: int) -> bool:
+    """Whether a csrc/pairhmm.cu launch of B pairs runs the wavefront
+    schedule (the split chain otherwise)."""
+    return B < WAVE_BELOW
+
+
+def wave_ok(threads: int, pad: int) -> bool:
+    """csrc/pairhmm.cu has a wavefront variant at this T and pad."""
+    return threads >= 2 and 2 * pad // threads >= 2
+
+
+def lanes_width(B: int, pad: int) -> int:
+    """Lanes a pair for a csrc/pairhmm_lanes.cu launch: min(D, 32) below
+    WAVE_BELOW pairs (latency: the shorter scan loses less than the second
+    diagonal costs), half of it above (throughput: fewer shuffles a cell)."""
+    lw = min(2 * pad, 32)
+    return lw if B < WAVE_BELOW else lw // 2
+
+
+def lanes_widths(pad: int) -> tuple[int, int]:
+    """The two lane widths csrc/pairhmm_lanes.cu is built for at `pad`."""
+    lw = min(2 * pad, 32)
+    return lw, lw // 2
 
 
 def kernel_library(name: str = "pairhmm"):
@@ -308,40 +411,73 @@ def kernel_library(name: str = "pairhmm"):
     if lib is None:
         from ..._build import CSRC, build, nvcc_path
         src = CSRC / f"{name}.cu"
+        sources = [src] + ([CSRC / "pairhmm_stage.cuh"] if name in _SMEM_ENTRY
+                           else [])
         path = build(
-            name, [src],
+            name, sources,
             lambda out: [nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
                          "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                          "-Xptxas", "-v", src, "-o", out],
             ".so")
         lib = ctypes.CDLL(str(path))
-        entry, n_ptr = _ENTRY[name]
+        entry, n_ptr, n_extra = _ENTRY[name]
         fn = getattr(lib, entry)
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * (5 + n_extra)
                        + [ctypes.c_void_p])
+        if name in _SMEM_ENTRY:
+            smem_fn, n_variant = _SMEM_ENTRY[name]
+            smem = getattr(lib, smem_fn)
+            smem.restype = ctypes.c_int
+            smem.argtypes = [ctypes.c_int] * (1 + n_variant)
         _libs[name] = lib
     return lib
 
 
+def smem_bytes(name: str, pad: int, *variant: int) -> int:
+    """Dynamic shared memory of one block of kernel `name` (built on first
+    use) at `pad` and its variant: (threads a pair, wavefront) for pairhmm,
+    (lanes a pair,) for pairhmm_lanes."""
+    n = getattr(kernel_library(name), _SMEM_ENTRY[name][0])(pad, *variant)
+    if n < 0:
+        raise ValueError(f"{name}: no variant {variant} at pad {pad}")
+    return n
+
+
+def _raw_stream(index: int) -> int:
+    """The current CUDA stream of device `index` as an int."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
 def _launch(name: str, tensors: list[torch.Tensor], B: int, R: int, W: int,
-            pad: int, nuc_prior: int) -> torch.Tensor:
+            pad: int, nuc_prior: int, extra: tuple = ()) -> torch.Tensor:
     """One launch of kernel `name` on contiguous int32 tensors of one CUDA
-    device; counts it in KERNEL_COUNTS[name]."""
+    device; counts it in KERNEL_COUNTS[name]. A main-path launch scores a
+    few hundred pairs in tens of microseconds of card time, so the host
+    work here is kept to the checks and one ctypes call."""
     dev = tensors[0].device
-    for t in tensors:
-        if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
-            raise ValueError(f"{name} tracks must be contiguous int32 on {dev}")
     if dev.type != "cuda":
         raise ValueError(f"{name} needs CUDA tensors, got {dev}")
+    index = dev.index
+    for t in tensors:
+        if (t.dtype != torch.int32 or not t.is_contiguous()
+                or t.get_device() != index):
+            raise ValueError(f"{name} tracks must be contiguous int32 on {dev}")
     out = torch.empty(B, dtype=torch.int32, device=dev)
     if B == 0:
         return out
     fn = getattr(kernel_library(name), _ENTRY[name][0])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*(t.data_ptr() for t in tensors), out.data_ptr(), B, R, W,
-                 pad, nuc_prior, stream)
+    args = [t.data_ptr() for t in tensors]
+    args += [out.data_ptr(), B, R, W, pad, nuc_prior, *extra,
+             _raw_stream(index)]
+    if index == torch.cuda.current_device():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     KERNEL_COUNTS[name].add(B)
@@ -353,26 +489,49 @@ def _require_cuda(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name} needs CUDA tensors, got {t.device}")
 
 
+def _batch_major(name: str, tracks: list[torch.Tensor]) -> tuple[int, int, int]:
+    """(B, R, W) of batch-major tracks: tgt/qual (B, R) and the five window
+    tracks (B, W)."""
+    message = f"{name} tracks must be (B, R) x 2 and (B, W) x 5"
+    if len(tracks) != 7 or any(t.dim() != 2 for t in tracks):
+        raise ValueError(message)
+    B, R = tracks[0].shape
+    W = tracks[2].shape[1]
+    if tracks[1].shape != (B, R) or any(t.shape != (B, W) for t in tracks[2:]):
+        raise ValueError(message)
+    return B, R, W
+
+
 def pairhmm_scores_cuda(tgt, qual, win, opn, ext, mask, prior, *, pad: int = 8,
                         nuc_prior: int = DEFAULT_NUC_PRIOR) -> torch.Tensor:
-    """Launch csrc/pairhmm.cu on CUDA int32 tensors: (B,) int32 scores."""
+    """Launch csrc/pairhmm.cu on CUDA int32 tensors: (B,) int32 scores. The
+    kernel reads batch-major tracks, so nothing is transposed."""
     _check_shapes(tgt, qual, win, opn, ext, mask, prior, pad)
     _require_cuda("pairhmm_scores_cuda", tgt)
-    # kernel layout (rows, B): a warp's 32 threads read 32 adjacent pairs
-    return launch_kernel(_kernel_layout(tgt, qual, win, opn, ext, mask, prior),
+    return launch_kernel([a.to(torch.int32).contiguous()
+                          for a in (tgt, qual, win, opn, ext, mask, prior)],
                          pad=pad, nuc_prior=nuc_prior)
 
 
 def launch_kernel(tracks: list[torch.Tensor], *, pad: int,
-                  nuc_prior: int = DEFAULT_NUC_PRIOR) -> torch.Tensor:
-    """One launch of csrc/pairhmm.cu on kernel-layout tracks: tgt/qual
-    (R, B) and win/opn/ext/mask/prior (W, B), contiguous int32 on one CUDA
-    device."""
-    R, B = tracks[0].shape
-    W = tracks[2].shape[0]
-    if any(t.shape[1] != B for t in tracks):
-        raise ValueError("kernel tracks must all be (rows, B)")
-    return _launch("pairhmm", tracks, B, R, W, pad, nuc_prior)
+                  nuc_prior: int = DEFAULT_NUC_PRIOR, threads: int | None = None,
+                  wave: bool | None = None) -> torch.Tensor:
+    """One launch of csrc/pairhmm.cu on batch-major tracks: tgt/qual (B, R)
+    and win/opn/ext/mask/prior (B, W), contiguous int32 on one CUDA device.
+    threads (T a pair) defaults to `pairhmm_threads`, wave to
+    `pairhmm_wave`."""
+    B, R, W = _batch_major("pairhmm", tracks)
+    if threads is None:
+        T = pairhmm_threads(B, pad)
+        wave = pairhmm_wave(B, pad) if wave is None else wave
+    else:
+        T, wave = threads, bool(wave)
+    if T not in THREADS or T > 2 * pad:
+        raise ValueError(f"threads {T} not in {THREADS} up to band {2 * pad}")
+    if wave and not wave_ok(T, pad):
+        raise ValueError(f"no wavefront at {T} threads, band {2 * pad}")
+    return _launch("pairhmm", tracks, B, R, W, pad, nuc_prior,
+                   (T, int(wave)))
 
 
 def pairhmm_scores_lanes_cuda(tgt, qual, win, opn, ext, mask, prior, *,
@@ -389,15 +548,17 @@ def pairhmm_scores_lanes_cuda(tgt, qual, win, opn, ext, mask, prior, *,
 
 
 def launch_lanes(tracks: list[torch.Tensor], *, pad: int,
-                 nuc_prior: int = DEFAULT_NUC_PRIOR) -> torch.Tensor:
+                 nuc_prior: int = DEFAULT_NUC_PRIOR, lanes: int | None = None
+                 ) -> torch.Tensor:
     """One launch of csrc/pairhmm_lanes.cu on batch-major tracks: tgt/qual
     (B, R) and win/opn/ext/mask/prior (B, W), contiguous int32 on one CUDA
-    device."""
-    B, R = tracks[0].shape
-    W = tracks[2].shape[1]
-    if any(t.shape[0] != B for t in tracks):
-        raise ValueError("lanes tracks must all be (B, columns)")
-    return _launch("pairhmm_lanes", tracks, B, R, W, pad, nuc_prior)
+    device. lanes (LW a pair) defaults to `lanes_width`."""
+    B, R, W = _batch_major("pairhmm_lanes", tracks)
+    LW = lanes_width(B, pad) if lanes is None else lanes
+    if pad not in PADS or LW not in lanes_widths(pad):
+        raise ValueError(f"lanes {LW} not in {lanes_widths(pad) if pad in PADS else ()}")
+    return _launch("pairhmm_lanes", tracks, B, R, W, pad, nuc_prior,
+                   (LW,))
 
 
 def pairhmm_scores_cost_cuda(tgt, qual, win, opn, ext, mask, prior, *,
@@ -475,6 +636,13 @@ __all__ = [
     "launch_lanes",
     "launch_cost",
     "kernel_library",
+    "smem_bytes",
+    "pairhmm_threads",
+    "pairhmm_wave",
+    "wave_ok",
+    "lanes_width",
+    "lanes_widths",
+    "THREADS",
     "scorer_name",
     "COUNTS",
     "COUNTS_LANES",

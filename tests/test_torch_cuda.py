@@ -120,6 +120,52 @@ def test_new_kernels_match_their_plain_twins(cuda, kernel, B, R, pad):
     assert torch.equal(got, pb.pairhmm_scores_plain(*args, pad=pad))
 
 
+# every B, R and band of the redesigned kernels' checks, each at least once;
+# R = 2000 makes the staging rings wrap many times
+VARIANT_SHAPES = [(1, 33, 8), (17, 160, 16), (129, 2000, 32), (300, 150, 8),
+                  (65536, 150, 8), (1, 2000, 16), (17, 150, 32),
+                  (129, 33, 16), (300, 2000, 8), (65536, 160, 16),
+                  (300, 160, 32), (65536, 33, 32)]
+
+
+def variants(pad):
+    """(launcher, keyword arguments) of every variant the two main-path
+    kernels are built with at `pad`: csrc/pairhmm.cu's split chain at every
+    T and wavefront where K >= 2, csrc/pairhmm_lanes.cu at both lane
+    widths."""
+    for T in pb.THREADS:
+        if T <= 2 * pad:
+            yield pb.launch_kernel, {"threads": T, "wave": False}
+        if pb.wave_ok(T, pad):
+            yield pb.launch_kernel, {"threads": T, "wave": True}
+    for LW in pb.lanes_widths(pad):
+        yield pb.launch_lanes, {"lanes": LW}
+
+
+@pytest.mark.parametrize("B,R,pad", VARIANT_SHAPES)
+def test_every_variant_matches_plain(cuda, B, R, pad):
+    args = [torch.from_numpy(a).to(cuda) for a in random_batch(B * 7 + R, B,
+                                                               R, pad)]
+    want = pb.pairhmm_scores_plain(*args, pad=pad)
+    assert torch.equal(pb.pairhmm_scores_lanes_plain(*args, pad=pad), want)
+    for launch, kw in variants(pad):
+        got = launch(args, pad=pad, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (launch.__name__, kw)
+
+
+@pytest.mark.parametrize("kind", sorted(GOLDEN_CASES))
+def test_every_variant_matches_golden_binary(cuda, kind):
+    if not os.path.exists(HARNESS):
+        pytest.skip("golden harness not built")
+    cases, pad = GOLDEN_CASES[kind]()
+    want = run_reference(cases, pad=pad)
+    args = [torch.from_numpy(a).to(cuda) for a in pack_cases(cases, pad)]
+    for launch, kw in variants(pad):
+        assert launch(args, pad=pad, **kw).cpu().tolist() == want, (
+            launch.__name__, kw)
+
+
 @pytest.mark.parametrize("kind", sorted(GOLDEN_CASES))
 def test_kernel_matches_golden_binary(cuda, kind):
     if not os.path.exists(HARNESS):

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Five phases, each printing JSON lines:
+Eight phases, each printing JSON lines:
 
 1. build: g++ builds the host extension and nvcc builds the three CUDA
    kernels (csrc/pairhmm.cu, pairhmm_lanes.cu, pairhmm_cost.cu), all from
@@ -44,7 +44,28 @@ Five phases, each printing JSON lines:
    in turns: default gate, gate 0, gate 0 unrolled, default gate. Every
    run must write the same VCF records, reach recall and precision 0.95 on
    PASS records and leave FACET_MISSES at 0; each gate-0 run must launch
-   its kernel from both populate and read assignment.
+   its kernel from both populate and read assignment;
+6. vb_gate_sweep: SubcloneModel.evaluate (K = 3, 2 seeds, 40 iterations,
+   the cancer caller's) at 128 and 512 reads and 1 to 4096 genotypes, on
+   CPU torch and on the card with its copies; host-clock medians of 7 runs
+   in turns (the host's capped at 5 s a size), and the crossover in real
+   elements (G*S*K*N), which sets subclone_vb.VB_DEVICE_MIN;
+7. cancer_cli: a simulated tumour (60x) and normal (30x), 100 kb, about 14
+   somatic SNVs at VAF 0.25 (bench_e2e_multi.py's bench_cancer, written
+   untimed), through octopus_tpu_torch.cli.main with --caller cancer
+   --normal-sample NORMAL. An untimed checked run with both gates at 0
+   (OCTOPUS_TPU_HOST_HMM_MAX and OCTOPUS_TPU_VB_DEVICE_MIN) keeps every
+   pair-HMM launch and every VB evaluation and holds them against the plain
+   twin (bit for bit) and the same evaluation on the CPU (1e-5; the rows
+   of the largest on a sample, check_vb). Then timed
+   runs in turns: default gates, gates 0, default gates. Every run must
+   write the same records; each gates-0 run must launch kernel #1 from
+   populate and read assignment and run VB on the card; germline recall
+   and precision must reach 0.95 and somatic 0.9;
+8. polyclone_cli and cell_cli: the BAMs of the reference package's
+   tests/test_e2e_polyclone_cell.py (12 kb, 3 clones, 100x; 9 kb, 6 cells,
+   15x) through the CLI once on the card with both gates at 0, every VB
+   evaluation held against the CPU's, and those tests' truth checks.
 
 Then it prints the card's name and power limit, the kernel table, and as
 its last line {"ok": true, "device": {...}}. Any failure raises, and the
@@ -760,7 +781,7 @@ def phase_main_path(device="cuda", kb=REGION_KB):
 # ---------------------------------------------------------------------------
 
 CLI_ENV_KEYS = ("OCTOPUS_TPU_HOST_HMM_MAX", "OCTOPUS_TPU_UNROLLED_HMM",
-                "OCTOPUS_TPU_HOST_LATENTS")
+                "OCTOPUS_TPU_HOST_LATENTS", "OCTOPUS_TPU_VB_DEVICE_MIN")
 # label -> (environment, the kernel its gate-0 job sets must launch)
 CLI_RUNS = {
     "default_gate": ({}, None),
@@ -894,6 +915,369 @@ def phase_cli(device="cuda", kb=CLI_REGION_KB):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the VB size gate
+# ---------------------------------------------------------------------------
+
+VB_TOL = 1e-5
+VB_SWEEP_READS = (128, 512)
+VB_SWEEP_GENOTYPES = (1, 4, 16, 64, 256, 1024, 4096)
+
+
+def vb_close(got, want, tol=VB_TOL) -> float:
+    """Largest error of `got` against `want`, relative where |want| > 1; it
+    must not exceed tol."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    if not want.size:
+        return 0.0
+    return float((np.abs(got - want) / np.maximum(np.abs(want), 1.0)).max())
+
+
+def phase_vb_gate_sweep(reps=7, host_budget_s=5.0):
+    """SubcloneModel.evaluate on CPU torch and on the card (copies in and
+    out included, numpy in and out as the callers call it), K = 3, 2 seeds,
+    40 iterations, the cancer caller's tumour concentrations. Host-clock
+    medians of `reps` runs each, host and card in turns; the host stops
+    early once its runs of a size have taken `host_budget_s` (one run of
+    4096 genotypes at 512 reads takes ~18 s there), and the row says how
+    many it made. The crossover is the least count of real elements
+    G*S*K*N from which the card is faster at every larger size."""
+    import os
+    from octopus_tpu_torch.core.models import subclone_vb as vb
+    rng = np.random.default_rng(SEED + 2)
+    K, S, n_iter, H = 3, 2, 40, 6
+    a0 = np.asarray([1.5, 1.5, 1.0], np.float32)
+    rows = []
+    os.environ["OCTOPUS_TPU_VB_DEVICE_MIN"] = "0"
+    try:
+        for N in VB_SWEEP_READS:
+            lnL = -rng.exponential(2.0, (H, N))
+            lnL[rng.integers(0, H, N), np.arange(N)] = -0.05
+            for G in VB_SWEEP_GENOTYPES:
+                tuples = np.stack([rng.choice(H, K, replace=False)
+                                   for _ in range(G)])
+                models = {d: vb.SubcloneModel(n_seeds=S, n_iter=n_iter,
+                                              device=d)
+                          for d in ("cpu", "cuda")}
+
+                def run(d):
+                    return models[d].evaluate(tuples, lnL, alpha0_vec=a0)
+
+                run("cuda")                          # first use
+                times = {"cpu": [], "cuda": []}
+                out = {}
+                for _ in range(reps):
+                    for d in ("cpu", "cuda"):
+                        if d == "cpu" and sum(times[d]) > host_budget_s * 1e3:
+                            continue
+                        t0 = time.perf_counter()
+                        out[d] = run(d)
+                        times[d].append((time.perf_counter() - t0) * 1e3)
+                err = max(vb_close(out["cuda"].genotype_log_evidences,
+                                   out["cpu"].genotype_log_evidences),
+                          vb_close(out["cuda"].map_alphas,
+                                   out["cpu"].map_alphas))
+                if err > VB_TOL:
+                    raise AssertionError(f"vb_gate_sweep G={G} N={N}: card "
+                                         f"and CPU differ by {err}")
+                rows.append({"G": G, "N": N, "elements": G * S * K * N,
+                             "host_ms": statistics.median(times["cpu"]),
+                             "card_ms": statistics.median(times["cuda"]),
+                             "host_runs": len(times["cpu"]),
+                             "max_rel_err": err})
+    finally:
+        os.environ.pop("OCTOPUS_TPU_VB_DEVICE_MIN", None)
+    rows.sort(key=lambda r: r["elements"])
+    crossover = next((r["elements"] for i, r in enumerate(rows)
+                      if all(x["card_ms"] < x["host_ms"] for x in rows[i:])),
+                     None)
+    emit({"phase": "vb_gate_sweep", "K": K, "seeds": S, "n_iter": n_iter,
+          "rows": rows, "crossover_elements": crossover,
+          "gate_elements": vb.VB_DEVICE_MIN})
+    return crossover
+
+
+# ---------------------------------------------------------------------------
+# phases 7 and 8: the VB callers through the CLI
+# ---------------------------------------------------------------------------
+
+CANCER_KB = 100
+CANCER_DEPTH = 60
+CANCER_SEED = 7
+CANCER_VAF = 0.25
+VB_GATES = {"default_gates": {},
+            "gates0": {"OCTOPUS_TPU_HOST_HMM_MAX": "0",
+                       "OCTOPUS_TPU_VB_DEVICE_MIN": "0"}}
+
+
+@contextlib.contextmanager
+def kept_vb(into):
+    """Keeps every VB evaluation (engine name, CPU copies of its inputs and
+    of its outputs) in `into`."""
+    from octopus_tpu_torch.core.models import mixture_mixture_vb as mm
+    from octopus_tpu_torch.core.models import subclone_vb as vb
+    engines = [(vb, "vb_subclone"), (mm, "vb_mixture_mixture")]
+    real = [getattr(mod, name) for mod, name in engines]
+
+    def keeping(fn, name):
+        def run(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            into.append((name, [a.cpu().clone() if hasattr(a, "cpu") else a
+                                for a in args], kwargs,
+                         [o.cpu().clone() for o in out],
+                         str(out[0].device)))
+            return out
+        return run
+
+    for (mod, name), fn in zip(engines, real):
+        setattr(mod, name, keeping(fn, name))
+    try:
+        yield
+    finally:
+        for (mod, name), fn in zip(engines, real):
+            setattr(mod, name, fn)
+
+
+# genotype rows of a subclone evaluation that check_vb runs again on the
+# CPU: all up to this many, else the first and last half of it
+VB_CHECK_ROWS = 2048
+
+
+def check_vb(kept, phase):
+    """Every kept evaluation run again on the CPU: ELBO and Dirichlet
+    parameters within VB_TOL relative, responsibilities within VB_TOL.
+    Genotype rows are independent and vb_math reduces each in a fixed
+    order, so a subclone evaluation of more than VB_CHECK_ROWS rows (the
+    cancer caller's somatic tuples of a dense region reach 31,002, ~1 min
+    on the host) is checked on its first and last VB_CHECK_ROWS / 2."""
+    import torch
+    from octopus_tpu_torch.core.models import mixture_mixture_vb as mm
+    from octopus_tpu_torch.core.models import subclone_vb as vb
+    engines = {"vb_subclone": vb.vb_subclone,
+               "vb_mixture_mixture": mm.vb_mixture_mixture}
+    errs = collections.defaultdict(float)
+    devices = collections.Counter()
+    sampled = 0
+    for name, args, kwargs, outs, device in kept:
+        devices[device] += 1
+        if name == "vb_subclone" and args[0].shape[0] > VB_CHECK_ROWS:
+            half = VB_CHECK_ROWS // 2
+            rows = torch.cat([torch.arange(half),
+                              torch.arange(args[0].shape[0] - half,
+                                           args[0].shape[0])])
+            args = [args[0][rows], *args[1:]]
+            outs = [o[rows] for o in outs]
+            sampled += 1
+        want = engines[name](*args, **kwargs)
+        for i, (g, w) in enumerate(zip(outs, want)):
+            prob = (name, i) in (("vb_subclone", 2), ("vb_mixture_mixture", 1))
+            e = (float((g - w).abs().max()) if prob and g.numel()
+                 else vb_close(g.numpy(), w.numpy()))
+            errs[f"{name}/{i}"] = max(errs[f"{name}/{i}"], e)
+    worst = max(errs.values(), default=0.0)
+    emit({"phase": phase, "evaluations": len(kept),
+          "devices": dict(devices), "row_sampled": sampled,
+          "max_err": dict(errs), "tol": VB_TOL})
+    if worst > VB_TOL:
+        raise AssertionError(f"{phase}: card VB differs from the CPU's by "
+                             f"{worst}")
+    return worst
+
+
+def run_vb_cli(tmp, phase, label, argv, env, device, timed):
+    """One CLI run with the VB callers: the environment set, every counter
+    reset; returns (record lines, the JSON row)."""
+    import os
+    import torch
+    from octopus_tpu_torch import cli
+    from octopus_tpu_torch.core.csr import measures
+    from octopus_tpu_torch.core.likelihood import likelihood_array as la
+    from octopus_tpu_torch.core.likelihood import pairhmm_batch as pb
+    from octopus_tpu_torch.core.models import genotype_likelihoods as gl
+    from octopus_tpu_torch.core.models import subclone_vb as vb
+    from octopus_tpu_torch.utils import timers
+    for k in CLI_ENV_KEYS:
+        os.environ.pop(k, None)
+    os.environ.update(env)
+    la._PENALTY_CACHE.clear()
+    la._KMER_INDEX_CACHE.clear()
+    timers.reset()
+    for counts in pb.KERNEL_COUNTS.values():
+        counts.reset()
+    la.ROUTING.reset()
+    gl.COUNTS.reset()
+    vb.COUNTS.reset()
+    misses = measures.FACET_MISSES
+    out = os.path.join(tmp, f"{label}_{'timed' if timed else 'checked'}.vcf")
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    t = time.perf_counter()
+    rc = cli.main([*argv, "-o", out, "--device", device, "--benchmark"])
+    sync()
+    wall = time.perf_counter() - t
+    if rc != 0:
+        raise AssertionError(f"{label}: exit code {rc}")
+    with open(out) as fh:
+        lines = [line.rstrip("\n") for line in fh if not line.startswith("#")]
+    phase_s = dict(timers._totals)
+    row = {"phase": phase, "run": label, "timed": timed, "device": device,
+           "wall_s": wall,
+           "phase_s": phase_s,
+           "launches": {k: c.launches for k, c in pb.KERNEL_COUNTS.items()},
+           "pairs": {k: c.pairs for k, c in pb.KERNEL_COUNTS.items()},
+           "job_sets": {f"{src}/{sc}": v for (src, sc), v
+                        in sorted(la.ROUTING.job_sets.items())},
+           "genotype_reductions_host": gl.COUNTS.host,
+           "genotype_reductions_card": gl.COUNTS.device,
+           "vb_evaluations_host": vb.COUNTS.host,
+           "vb_evaluations_card": vb.COUNTS.device,
+           "vb_elements_host": vb.COUNTS.host_elements,
+           "vb_elements_card": vb.COUNTS.device_elements,
+           "facet_misses": measures.FACET_MISSES - misses,
+           "records": len(lines),
+           "pass_records": sum(line.split("\t")[6] == "PASS"
+                               for line in lines)}
+    if env and device == "cuda":
+        for src in ("populate", "assignment"):
+            if not la.ROUTING.job_sets[(src, "pairhmm")]:
+                raise AssertionError(f"{label}: kernel #1 never ran from "
+                                     f"{src}")
+        if not vb.COUNTS.device or vb.COUNTS.host:
+            raise AssertionError(f"{label}: VB ran {vb.COUNTS.host} times on "
+                                 f"the host, {vb.COUNTS.device} on the card")
+    return lines, row
+
+
+def somatic_lines(lines, somatic=True):
+    return [line for line in lines
+            if ("SOMATIC" in line.split("\t")[7].split(";")) == somatic]
+
+
+def phase_cancer_cli(device="cuda", kb=CANCER_KB):
+    """The cancer caller through the CLI on a simulated tumour-normal pair:
+    an untimed checked run with both gates at 0, then timed runs in turns.
+    Returns (the launches of kernel #1 in the timed gates-0 run, the kept
+    launches' and evaluations' largest errors).
+    device="cpu" rehearses the phase (no kernel, no card VB)."""
+    import os
+    import shutil
+    import tempfile
+    from octopus_tpu_torch.core.likelihood import likelihood_array as la
+    from octopus_tpu_torch.core.likelihood import pairhmm_batch as pb
+    from octopus_tpu_torch.utils.synthetic import simulate_tumour_normal
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cancer_")
+    try:
+        t0 = time.perf_counter()
+        fa, bam_n, bam_t, germline, somatic, n = simulate_tumour_normal(
+            tmp, kb=kb, depth=CANCER_DEPTH, seed=CANCER_SEED, vaf=CANCER_VAF)
+        emit({"phase": "cancer_cli_input", "region_kb": kb,
+              "tumour_depth": CANCER_DEPTH, "normal_depth": CANCER_DEPTH // 2,
+              "vaf": CANCER_VAF, "germline": len(germline),
+              "somatic": len(somatic),
+              "bam_bytes": os.path.getsize(bam_n) + os.path.getsize(bam_t),
+              "simulate_and_write_s": time.perf_counter() - t0})
+        argv = ["-R", fa, "-I", bam_n, bam_t, "--caller", "cancer",
+                "--normal-sample", "NORMAL"]
+
+        def run(label, timed):
+            lines, row = run_vb_cli(tmp, "cancer_cli", label, argv,
+                                    VB_GATES[label], device, timed)
+            germ_r, germ_p = accuracy(somatic_lines(lines, False), germline)
+            som_r, som_p = accuracy(somatic_lines(lines, True), somatic)
+            row.update({
+                "region_kb": kb,
+                "wall_s_per_kb": row["wall_s"] / kb,
+                "somatic_pass_records": sum(
+                    line.split("\t")[6] == "PASS"
+                    for line in somatic_lines(lines, True)),
+                "germline_recall": germ_r, "germline_precision": germ_p,
+                "somatic_recall": som_r, "somatic_precision": som_p})
+            emit(row)
+            if min(germ_r, germ_p) < 0.95 or min(som_r, som_p) < 0.9:
+                raise AssertionError(f"cancer_cli {label}: germline {germ_r} "
+                                     f"{germ_p}, somatic {som_r} {som_p}")
+            return lines, row
+
+        kept, kept_evals = [], []
+        with kept_launches(pb, kept, "pairhmm", la), kept_vb(kept_evals):
+            checked, _ = run("gates0", timed=False)
+        errs = {}
+        if device == "cuda":
+            errs["pairhmm"] = check_launches(pb, kept, "cancer_cli_launches")
+            errs["vb"] = check_vb(kept_evals, "cancer_cli_vb")
+        runs = [checked]
+        launches = None
+        # in turns, so that neither routing gains from running later
+        for label in ("default_gates", "gates0", "default_gates"):
+            lines, row = run(label, timed=True)
+            runs.append(lines)
+            if label == "gates0":
+                launches = row["launches"]["pairhmm"]
+        if any(lines != checked for lines in runs):
+            raise AssertionError("cancer_cli runs wrote different records")
+        return launches, errs
+    finally:
+        for k in CLI_ENV_KEYS:
+            os.environ.pop(k, None)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def near_all(lines, targets, tol=5):
+    called = [int(line.split("\t")[1]) - 1 for line in lines]
+    return all(any(abs(t - p) <= tol for p in called) for t in targets)
+
+
+def phase_vb_sample_cli(kind, device="cuda"):
+    """The polyclone or cell caller through the CLI on the BAMs of
+    tests/test_e2e_polyclone_cell.py, once with both gates at 0; every VB
+    evaluation held against the CPU's; those tests' truth checks."""
+    import os
+    import shutil
+    import tempfile
+    from octopus_tpu_torch.utils import synthetic
+
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{kind}_")
+    try:
+        if kind == "polyclone":
+            fa, bam, trunk, private, n = synthetic.simulate_polyclone(tmp)
+            bams, truth = [bam], trunk + list(private)
+            args = ["--caller", "polyclone", "--organism-ploidy", "1",
+                    "--max-clones", "4"]
+        else:
+            fa, bams, truth, som, n = synthetic.simulate_cells(tmp)
+            args = ["--caller", "cell", "--max-phylogeny-size", "2"]
+        kept = []
+        with kept_vb(kept):
+            lines, row = run_vb_cli(
+                tmp, f"{kind}_cli", "gates0",
+                ["-R", fa, "-I", *bams, "-T", "chr1", *args],
+                VB_GATES["gates0"], device, timed=True)
+        called = [line for line in lines if line.split("\t")[4] != "."]
+        row.update({"region_kb": n / 1000,
+                    "samples": len(bams), "truth": len(truth),
+                    "truth_called": near_all(called, truth)})
+        ok = row["truth_called"]
+        if kind == "cell":
+            carriers = [line for line in somatic_lines(called)
+                        if abs(int(line.split("\t")[1]) - 1 - som) <= 5]
+            info = (dict(kv.split("=") for kv in carriers[0].split("\t")[7]
+                         .split(";") if "=" in kv) if carriers else {})
+            row["somatic_cells"] = int(info.get("CELLS", -1))
+            ok = ok and 1 <= row["somatic_cells"] <= 5
+        emit(row)
+        if device == "cuda":
+            check_vb(kept, f"{kind}_cli_vb")
+        if not ok:
+            raise AssertionError(f"{kind}_cli: truth check failed: {row}")
+        return row
+    finally:
+        for k in CLI_ENV_KEYS:
+            os.environ.pop(k, None)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -909,13 +1293,20 @@ def main() -> int:
     emit({"phase": "main_path_kernel_launches",
           "pairhmm": main_path_launches})
     cli_launches, cli_errs = phase_cli()
+    phase_vb_gate_sweep()
+    cancer_launches, cancer_errs = phase_cancer_cli()
+    for kind in ("polyclone", "cell"):
+        phase_vb_sample_cli(kind)
     print(card_line(), flush=True)
     sources = {"pairhmm": "octopus_tpu_torch/csrc/pairhmm.cu",
                "pairhmm_lanes": "octopus_tpu_torch/csrc/pairhmm_lanes.cu",
                "pairhmm_cost": "octopus_tpu_torch/csrc/pairhmm_cost.cu"}
-    kept_errs = {"pairhmm": [main_path_err, cli_errs["pairhmm"]],
+    kept_errs = {"pairhmm": [main_path_err, cli_errs["pairhmm"],
+                             cancer_errs["pairhmm"]],
                  "pairhmm_lanes": [cli_errs["pairhmm_lanes"]],
                  "pairhmm_cost": []}
+    launches = {k: cli_launches.get(k, 0) for k in KERNELS}
+    launches["pairhmm"] += cancer_launches
     table = []
     for kernel in KERNELS:
         rows = kernel_rows[kernel]
@@ -925,9 +1316,14 @@ def main() -> int:
             "route": "cuda",
             "source": sources[kernel],
             "replaces": REPLACES[kernel],
-            # the CLI path's gate-0 run through this kernel; the cost
-            # kernel is on no path (as Pallas v2 is in the reference)
-            "launches": cli_launches.get(kernel, 0),
+            # the gate-0 runs of the individual and cancer CLI paths
+            # through this kernel; the cost kernel is on no path (as
+            # Pallas v2 is in the reference)
+            "launches": launches[kernel],
+            "launches_by_path": {"cli": cli_launches.get(kernel, 0),
+                                 "cancer_cli": (cancer_launches
+                                                if kernel == "pairhmm"
+                                                else 0)},
             "max_abs_err": max(kept_errs[kernel]
                                + [r["max_abs_err"] for r in rows]),
             "ms": bench["wrapper_ms"],

@@ -13,10 +13,11 @@ by `check_unported`, naming their ROADMAP.md item. Options whose semantics
 the design satisfies by construction (e.g. --use-wide-hmm-scores: the
 kernels always carry 32-bit scores) are accepted silently.
 
-`--device` picks where the pair-HMM and the genotype reductions run (the
-port's counterpart of JAX_PLATFORMS for the reference CLI); the host-DP gate
-of the likelihood array comes from OCTOPUS_TPU_HOST_HMM_MAX when the user
-sets it.
+`--device` picks where the pair-HMM, the genotype reductions and the VB
+engines run (the port's counterpart of JAX_PLATFORMS for the reference CLI);
+the host-DP gate of the likelihood array comes from OCTOPUS_TPU_HOST_HMM_MAX,
+and the VB size gate from OCTOPUS_TPU_VB_DEVICE_MIN, when the user sets
+them.
 """
 
 from __future__ import annotations
@@ -80,8 +81,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write a torch.profiler trace of the run to "
                         "DIR/trace.json (chrome://tracing)")
     g.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                   help="where the pair-HMM and the genotype reductions run "
-                        "(cuda needs a card and raises without one)")
+                   help="where the pair-HMM, the genotype reductions and "
+                        "the VB engines run (cuda needs a card and raises "
+                        "without one)")
     # TPU-build extras: multi-host work sharing + resumable shards
     g.add_argument("--shard-index", type=int, default=None,
                    help="this host's shard (multi-host static striping)")

@@ -26,11 +26,12 @@ def _from_dict(cls, values: dict):
     return cls(**kwargs)
 
 
-def caller_config_from_reference(values: dict,
-                                 device: str = "cuda") -> BaseCallerConfig:
-    """The port's BaseCallerConfig from `dataclasses.asdict` of the
+def caller_config_from_reference(values: dict, device: str = "cuda",
+                                 config_class: type = BaseCallerConfig):
+    """The port's `config_class` (BaseCallerConfig, or a caller's own config
+    such as CancerCallerConfig) from `dataclasses.asdict` of the
     reference's, nested configs included, running on `device`."""
-    config = _from_dict(BaseCallerConfig, values)
+    config = _from_dict(config_class, values)
     config.device = device
     config.likelihood.device = device
     return config

@@ -1,0 +1,220 @@
+"""Variational-Bayes Dirichlet mixture engine + subclone model.
+
+Capability-equivalent to the reference's VB machinery
+(src/core/models/genotype/variational_bayes_mixture_model.hpp:95-650) and
+SubcloneModel (subclone_model.hpp:29-104): a genotype is a K-tuple of
+haplotypes with unknown per-sample mixture weights; coordinate-ascent VB
+infers read responsibilities (N x K) and Dirichlet weight posteriors, with
+multi-seed restarts combined by evidence.
+
+Design: one batched coordinate ascent over (genotype, seed, component,
+read) tensors, G x S x K x N, on the caller's device; the loop over
+iterations runs in Python, so an evaluation is n_iter rounds of elementwise
+ops, a softmax over K and a sum over N. Its arithmetic is vb_math's, which
+gives the same bits on the CPU and on a card. Reads are not padded: the
+seeds are drawn at the padded read count the reference package uses (the
+ladder 32 * 4^k) and cut to the real reads, so every seed, and every
+result, is the one that padding with masked reads would give.
+
+Small evaluations run on the CPU, with the same result: `vb_device_min`
+counts real elements G*S*K*N (or S*N*C*M*R for the mixture-mixture model)
+and sends those below it to the host. Its default comes from
+chip_smoke.py's vb_gate_sweep on an H100; OCTOPUS_TPU_VB_DEVICE_MIN
+overrides it when set, and 0 sends every evaluation to the device. COUNTS
+holds evaluations and elements on each side.
+"""
+
+from __future__ import annotations
+
+import functools
+import os
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ...device import resolve_device
+from .individual import logsumexp
+from .vb_math import fdigamma, flgamma, flog, fsoftmax, fsum
+
+# real elements (G*S*K*N) below which an evaluation asked for on a CUDA
+# device runs on the CPU instead: chip_smoke.py's vb_gate_sweep on an H100
+# (K = 3, 2 seeds, 40 iterations) found the card faster from 49,152
+# elements up, at 128 and at 512 reads
+VB_DEVICE_MIN = 49_152
+# elements of one (G-chunk, S, K, N) intermediate; --target-working-memory
+# sets OCTOPUS_TPU_VB_BUDGET_ELEMS
+VB_BUDGET_ELEMS = 64_000_000
+
+
+@dataclass
+class VbCounts:
+    """VB evaluations and their elements, on the host and on the device."""
+
+    host: int = 0
+    device: int = 0
+    host_elements: int = 0
+    device_elements: int = 0
+
+    def reset(self) -> None:
+        self.host = self.device = 0
+        self.host_elements = self.device_elements = 0
+
+
+COUNTS = VbCounts()
+
+
+def vb_device_min() -> int:
+    value = os.environ.get("OCTOPUS_TPU_VB_DEVICE_MIN")
+    return VB_DEVICE_MIN if value is None else int(value)
+
+
+def vb_route(device: str | torch.device, elements: int) -> torch.device:
+    """The device an evaluation of `elements` real elements runs on, counted.
+    `device` is resolved first, so a CUDA device without a card raises
+    even when the evaluation is small enough for the host."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and elements < vb_device_min():
+        dev = torch.device("cpu")
+    if dev.type == "cuda":
+        COUNTS.device += 1
+        COUNTS.device_elements += elements
+    else:
+        COUNTS.host += 1
+        COUNTS.host_elements += elements
+    return dev
+
+
+def e_ln_weights(conc: torch.Tensor) -> torch.Tensor:
+    """E[ln w] of Dirichlet(conc) weights over the last axis: digamma of
+    each concentration less digamma of their sum."""
+    d = fdigamma(torch.cat([conc, fsum(conc, -1, keepdim=True)], -1))
+    return d[..., :-1] - d[..., -1:]
+
+
+def vb_subclone(lnl: torch.Tensor, alpha0: torch.Tensor,
+                resp_init: torch.Tensor, n_iter: int = 50):
+    """Every (genotype, seed) VB run at once.
+
+    lnl (G, K, N) component log-likelihoods of each genotype's reads;
+    alpha0 (K,) prior concentrations; resp_init (S, K, N) seed
+    responsibilities. Returns (elbo (G, S), alpha (G, S, K),
+    responsibilities (G, S, K, N)), each run as the reference's _vb_single
+    (subclone_vb.py:29-67) computes it, in vb_math's arithmetic."""
+    lnl4 = lnl[:, None]                                   # (G, 1, K, N)
+    resp = resp_init
+    alpha = alpha0 + fsum(resp_init, -1)                  # (S, K)
+    for _ in range(n_iter):
+        resp = fsoftmax(e_ln_weights(alpha)[..., None] + lnl4, dim=-2)
+        alpha = alpha0 + fsum(resp, -1)                   # (G, S, K)
+    G, S = lnl.shape[0], resp_init.shape[0]
+    resp = resp.expand(G, S, *resp.shape[-2:])
+    alpha = alpha.expand(G, S, alpha.shape[-1])
+    e_ln_w = e_ln_weights(alpha)
+
+    def total(x):                                         # over (K, N)
+        return fsum(fsum(x, -1), -1)
+
+    ll_term = total(resp * lnl4)
+    z_prior = total(resp * e_ln_w[..., None])
+    z_entropy = -total(resp * flog(torch.clamp(resp, min=1e-30)))
+    w_prior = (flgamma(fsum(alpha0, -1)) - fsum(flgamma(alpha0), -1)
+               + fsum((alpha0 - 1) * e_ln_w, -1))
+    w_entropy = -(flgamma(fsum(alpha, -1)) - fsum(flgamma(alpha), -1)
+                  + fsum((alpha - 1) * e_ln_w, -1))
+    elbo = ll_term + z_prior + z_entropy + w_prior + w_entropy
+    return elbo, alpha, resp
+
+
+def reference_read_rung(n: int) -> int:
+    """The padded read count the seeds are drawn at: 32 * 4^k >= n."""
+    rung = 32
+    while rung < n:
+        rung *= 4
+    return rung
+
+
+@functools.lru_cache(maxsize=64)
+def _seed_table(K: int, rung: int, n_seeds: int) -> np.ndarray:
+    rng = np.random.default_rng(0)
+    seeds = [np.full((K, rung), 1.0 / K, np.float32)]
+    for _ in range(n_seeds - 1):
+        seeds.append(rng.dirichlet(np.ones(K), size=rung).astype(np.float32).T)
+    table = np.stack(seeds)
+    table.setflags(write=False)          # shared by every caller
+    return table
+
+
+def subclone_seeds(K: int, N: int, n_seeds: int) -> np.ndarray:
+    """(S, K, N) seed responsibilities: uniform, then one Dirichlet draw per
+    extra seed, drawn at the padded read count and cut to the N real reads
+    (the draws beyond the first depend on the padded count)."""
+    return _seed_table(K, reference_read_rung(N), n_seeds)[:, :, :N]
+
+
+@dataclass
+class SubcloneInference:
+    genotype_log_evidences: np.ndarray   # (G,) approximate ln evidence
+    genotype_posteriors: np.ndarray      # (G,)
+    map_alphas: np.ndarray               # (G, K) weight posteriors
+    log_evidence: float                  # ln sum over genotypes + priors
+
+
+class SubcloneModel:
+    """Dirichlet-mixture-of-haplotypes model over candidate K-tuples."""
+
+    def __init__(self, prior_model=None, alpha0: float = 1.0, n_seeds: int = 3,
+                 n_iter: int = 50, device: str | torch.device = "cuda"):
+        self.prior_model = prior_model
+        self.alpha0 = alpha0
+        self.n_seeds = n_seeds
+        self.n_iter = n_iter
+        self.device = device
+
+    def evaluate(self, tuples: np.ndarray, lnL: np.ndarray,
+                 alpha0_vec: np.ndarray | None = None,
+                 log_priors: np.ndarray | None = None) -> SubcloneInference:
+        """tuples: (G, K) haplotype index tuples; lnL: (H, N)."""
+        G, K = tuples.shape
+        N = lnL.shape[1]
+        S = self.n_seeds
+        if alpha0_vec is None:
+            alpha0_vec = np.full(K, self.alpha0, np.float32)
+        dev = vb_route(self.device, G * S * K * N)
+        budget = int(os.environ.get("OCTOPUS_TPU_VB_BUDGET_ELEMS",
+                                    VB_BUDGET_ELEMS))
+        # genotype rows are independent: chunk them so the (Gc, S, K, N)
+        # intermediates stay within the budget
+        gchunk = max(1, budget // max(S * K * N, 1))
+        lnl32 = np.asarray(lnL, np.float32)
+        seeds = torch.tensor(subclone_seeds(K, N, S), device=dev)
+        a0 = torch.as_tensor(np.asarray(alpha0_vec, np.float32), device=dev)
+        elbo_parts, alpha_parts = [], []
+        for lo in range(0, G, gchunk):
+            # gather on the host: one (Gc, K, N) copy to the device
+            lnl_gkn = torch.as_tensor(lnl32[tuples[lo:lo + gchunk]], device=dev)
+            e, al, _ = vb_subclone(lnl_gkn, a0, seeds, n_iter=self.n_iter)
+            elbo_parts.append(e.double().cpu().numpy())
+            alpha_parts.append(al.cpu().numpy())
+        elbos = np.concatenate(elbo_parts)
+        alphas = np.concatenate(alpha_parts)
+        best_seed = np.argmax(elbos, axis=1)
+        gle = elbos[np.arange(G), best_seed]
+        map_alphas = alphas[np.arange(G), best_seed]
+        if log_priors is None and self.prior_model is not None:
+            log_priors = self.prior_model.evaluate_many(tuples)
+        if log_priors is None:
+            log_priors = np.zeros(G)
+        joint = gle + log_priors
+        log_evidence = logsumexp(joint)
+        post = np.exp(joint - log_evidence)
+        return SubcloneInference(
+            genotype_log_evidences=gle,
+            genotype_posteriors=post,
+            map_alphas=map_alphas,
+            log_evidence=log_evidence,
+        )
+
+
+__all__ = ["SubcloneModel", "SubcloneInference", "vb_subclone",
+           "subclone_seeds", "vb_route", "COUNTS", "VB_DEVICE_MIN"]

@@ -10,12 +10,15 @@ Orchestration design (octopus.cpp:467-529 and :1226-1342):
   skips completed windows;
 * shards merge into the final sorted VCF (vcf_utils::merge equivalent).
 
-This port runs the individual caller, serially or on a thread pool over
-windows, with inline threshold CSR; its pair-HMM and genotype reductions
-run on `--device` (default cuda). What it does not run yet raises
-NotPortedError when asked for (config.options.check_unported): the other
-callers, the process pool, the work queue and sharding, the forest and
-training CSR, --bamout, --filter-vcf and CRAM input.
+This port runs the individual, cancer (tumour with or without a normal),
+polyclone and cell callers, serially or on a thread pool over windows,
+with inline threshold CSR; its pair-HMM, genotype reductions and VB
+engines run on `--device` (default cuda). What it does not run yet raises
+NotPortedError when asked for (config.options.check_unported and
+_setup_components): the population and trio callers (and so a
+multi-sample run without a caller that takes several samples), the process
+pool, the work queue and sharding, the forest and training CSR, --bamout,
+--filter-vcf and CRAM input.
 """
 
 from __future__ import annotations
@@ -220,9 +223,73 @@ def parse_region(text: str, reference: ReferenceGenome,
     return contig, b, e
 
 
-def _make_caller(reference, contig: str, base_config=None):
-    """The individual caller (the one caller this port runs; the others
-    raise NotPortedError in _setup_components)."""
+def _make_caller(kind: str, reference, contig: str, samples: list[str],
+                 base_config=None, cli_args=None):
+    """Caller selection mirroring the reference's auto resolution
+    (option_collation.cpp:1845-1860); the population and trio callers
+    raise NotPortedError in _setup_components."""
+    import dataclasses
+
+    def specialise(cls, **extra):
+        if base_config is None:
+            return cls(**extra)
+        fields = {f.name: getattr(base_config, f.name)
+                  for f in dataclasses.fields(type(base_config))}
+        fields.update(extra)
+        # optional CLI ints arrive as None (the reference leaves them
+        # unset, option_parser.cpp:546): keep the caller's own default
+        # rather than overriding it with None
+        defaults = {f.name: f.default for f in dataclasses.fields(cls)
+                    if f.default is not dataclasses.MISSING}
+        for name, val in list(fields.items()):
+            if val is None and defaults.get(name) is not None:
+                fields[name] = defaults[name]
+        return cls(**fields)
+
+    def arg(name, default=None):
+        return getattr(cli_args, name, default) if cli_args is not None else default
+
+    if kind == "cancer":
+        from .core.callers.cancer import CancerCaller, CancerCallerConfig
+        extra = {}
+        if cli_args is not None:
+            names = arg("normal_samples") or []
+            normal = samples.index(names[0]) if names and names[0] in samples else None
+            extra = dict(
+                normal_sample=normal,
+                max_somatic_haplotypes=arg("max_somatic_haplotypes", 2),
+                min_somatic_posterior_phred=arg("min_somatic_posterior", 0.5),
+                somatic_snv_prior=arg("somatic_snv_prior", 1e-4),
+                somatic_indel_prior=arg("somatic_indel_prior", 1e-6),
+                tumour_germline_concentration=arg("tumour_germline_concentration", 1.5),
+                min_expected_somatic_frequency=arg("min_expected_somatic_frequency", 0.01),
+                somatic_credible_mass=arg("somatic_credible_mass", 0.9),
+                min_credible_somatic_frequency=arg("min_credible_somatic_frequency", 0.005),
+                normal_contamination_risk=str(arg("normal_contamination_risk", "LOW") or "LOW"),
+            )
+        return CancerCaller(reference, contig,
+                            specialise(CancerCallerConfig, **extra))
+    if kind == "polyclone":
+        from .core.callers.polyclone import PolycloneCaller, PolycloneCallerConfig
+        extra = {}
+        if cli_args is not None:
+            extra = dict(max_clones=arg("max_clones", 3),
+                         clonality_prior_decay=arg("clone_prior", 0.1) or 0.1)
+        return PolycloneCaller(reference, contig,
+                               specialise(PolycloneCallerConfig, **extra))
+    if kind == "cell":
+        from .core.callers.cell import CellCaller, CellCallerConfig
+        extra = {}
+        if cli_args is not None:
+            extra = dict(
+                max_phylogeny_size=arg("max_phylogeny_size", 3),
+                dropout_concentration=arg("dropout_concentration", 5.0),
+                phylogeny_concentration=arg("phylogeny_concentration", 20.0),
+                max_copy_loss=arg("max_copy_loss", 0) or 0,
+                max_copy_gain=arg("max_copy_gain", 0) or 0,
+                somatic_cnv_prior=arg("somatic_cnv_prior", 1e-5) or 1e-5,
+            )
+        return CellCaller(reference, contig, specialise(CellCallerConfig, **extra))
     if base_config is not None:
         return IndividualCaller(reference, contig, base_config)
     return IndividualCaller(reference, contig, CallerConfig())
@@ -290,6 +357,12 @@ def _setup_components(args):
         components = collate(args)
     except AttributeError:
         components = None
+    twm = getattr(args, "target_working_memory", None)
+    if twm:
+        # --target-working-memory: cap the VB genotype-chunk working set
+        # (float32 elements; /16 leaves headroom for the live intermediates)
+        os.environ["OCTOPUS_TPU_VB_BUDGET_ELEMS"] = str(
+            max(1_000_000, int(twm) // 16))
     from .errors import MissingFileError
     if not os.path.exists(args.reference):
         raise MissingFileError(args.reference, "reference FASTA",
@@ -323,15 +396,13 @@ def _setup_components(args):
         samples = [s for s in samples if s in wanted]
     caller_kind = (components.caller_kind if components
                    else getattr(args, "caller", "auto"))
-    if caller_kind != "individual" and (caller_kind != "auto"
-                                        or len(samples) > 1):
+    if caller_kind in ("population", "trio") or (caller_kind == "auto"
+                                                 and len(samples) > 1):
         from .errors import NotPortedError
         raise NotPortedError(
             f"the {'population' if caller_kind == 'auto' else caller_kind} "
             f"caller ({len(samples)} samples: {samples})",
-            "Subclone VB" if caller_kind in ("cancer", "polyclone")
-            else "Mixture-mixture VB" if caller_kind == "cell"
-            else "Remaining callers and tools", where="_setup_components")
+            "Remaining callers and tools", where="_setup_components")
     one_based = getattr(args, "one_based_indexing", False)
     if args.regions:
         regions = [parse_region(r, reference, one_based) for r in args.regions]
@@ -494,6 +565,8 @@ def _run_calling_main(args, components, reference, bams, samples,
         done = _load_journal(journal_path)
     progress = ProgressMeter(sum(w.end - w.begin for w in windows))
     caller_cache: dict[str, object] = {}
+    caller_kind = (components.caller_kind if components
+                   else getattr(args, "caller", "auto"))
     caller_config = components.caller if components else None
     n_records = 0
     n_threads = max(int(getattr(args, "threads", 0) or 0), 1)
@@ -503,7 +576,7 @@ def _run_calling_main(args, components, reference, bams, samples,
 
     def run_one(window):
         records = _call_window(window, reference, bams, samples, pipe, csr,
-                               caller_cache, caller_config, args,
+                               caller_cache, caller_kind, caller_config, args,
                                refcall_mode, annotations)
         records = _restrict_records(records, args)
         shard_path = os.path.join(shard_dir, window.key + ".vcf")
@@ -567,8 +640,8 @@ def _run_calling_main(args, components, reference, bams, samples,
 
 
 def _call_window(window, reference, bams, samples, pipe, csr, caller_cache,
-                 caller_config=None, cli_args=None, refcall_mode=None,
-                 annotations=()):
+                 caller_kind="individual", caller_config=None, cli_args=None,
+                 refcall_mode=None, annotations=()):
     from .utils import timers
     pad = 200
     with timers.phase("bam_fetch"):
@@ -601,7 +674,8 @@ def _call_window(window, reference, bams, samples, pipe, csr, caller_cache,
     window_report = ReadPipeReport(n_raw=total_raw, n_downsampled=total_kept)
     caller = caller_cache.get(window.contig)
     if caller is None:
-        caller = _make_caller(reference, window.contig, caller_config)
+        caller = _make_caller(caller_kind, reference, window.contig, samples,
+                              caller_config, cli_args)
         if cli_args is not None:
             from .basics.ploidy import PloidyMap
             pm = PloidyMap.parse(getattr(cli_args, "organism_ploidy", 2) or 2,

@@ -4,8 +4,8 @@ Simulated samples stand in for external truth sets: a random reference,
 truth variants at human-like rates, and error-bearing reads with exact
 CIGARs derived from the simulated haplotype structure. The in-memory
 functions return reads as tuples for make_read_batch; write_reference,
-write_sample_bam and simulate_diploid write a FASTA and an indexed BAM for
-the CLI, drawing the same random numbers as the reference package's
+write_sample_bam, simulate_diploid and simulate_tumour_normal write a FASTA
+and indexed BAMs for the CLI, drawing the same random numbers as the reference package's
 functions of the same names.
 """
 
@@ -182,6 +182,133 @@ def simulate_diploid(tmp, kb=100, depth=30, read_len=150, seed=11,
     return fa, _write_bam(tmp, sample, reads, "chr1", n), truth, n
 
 
+def simulate_tumour_normal(tmp, kb=60, depth=60, seed=7, vaf=0.25,
+                           read_len=150, n_somatic=14, err=0.001):
+    """Reference + NORMAL/TUMOUR BAMs + (germline dict, somatic dict).
+
+    The normal is a diploid at depth // 2; the tumour mixes a somatic clone
+    (SNVs on haplotype 0) into the normal diploid at read fraction 2*vaf,
+    giving expected somatic VAF = vaf. Draws the same random numbers in the
+    same order as the reference package's function of the same name.
+    Returns (fasta, normal BAM, tumour BAM, germline, somatic, length)."""
+    from ..basics.reads import FLAG_REVERSE
+
+    rng = np.random.default_rng(seed)
+    n = kb * 1000
+    seq = random_sequence(rng, n)
+    fa = write_reference(tmp, seq)
+    normal = [list(seq), list(seq)]
+    germline = {}
+    pos = 1500
+    while pos < n - 1500:
+        pos += int(rng.integers(1200, 3000))
+        if pos >= n - 1500:
+            break
+        kind = random_variant(rng, seq, pos)
+        hom = rng.random() < 0.3
+        apply_variant(normal, pos, kind,
+                      (0, 1) if hom else (int(rng.random() < 0.5),), seq)
+        germline[pos] = (kind, "hom" if hom else "het")
+    clone = [list(normal[0]), list(normal[1])]
+    somatic = {}
+    for _ in range(n_somatic):
+        pos = int(rng.integers(2000, n - 2000))
+        if (any(abs(pos - g) < 50 for g in germline)
+                or any(abs(pos - s) < 50 for s in somatic)):
+            continue
+        base = seq[pos]
+        alt = "ACGT"[("ACGT".index(base) + 2) % 4]
+        clone[0][pos] = alt
+        somatic[pos] = (("snv", alt), "som")
+    bam_n = write_sample_bam(tmp, "NORMAL", normal, n, depth // 2, read_len,
+                             rng, err=err)
+    flats_n = [flatten_haplotype(h) for h in normal]
+    flats_c = [flatten_haplotype(h) for h in clone]
+    n_reads = int(n * depth / read_len)
+    reads = []
+    for i in range(n_reads):
+        hap, refc = (flats_c if rng.random() < 2 * vaf else flats_n)[i % 2]
+        begin = int(rng.integers(0, len(hap) - read_len))
+        r = read_from_flat(hap, refc, begin, read_len, rng, err=err)
+        if r is None:
+            continue
+        p, cig, s = r
+        reads.append((p, cig, s, [37] * read_len, 60,
+                      FLAG_REVERSE if rng.random() < 0.5 else 0))
+    bam_t = _write_bam(tmp, "TUMOUR", reads, "chr1", n)
+    return fa, bam_n, bam_t, germline, somatic, n
+
+
+def _mixture_reads(flats, weights, n_reads, read_len, rng):
+    """Reads from flattened haplotypes drawn at the given weights."""
+    from ..basics.reads import FLAG_REVERSE
+    cum = np.cumsum(weights) / np.sum(weights)
+    reads = []
+    for _ in range(n_reads):
+        hap, refc = flats[int(np.searchsorted(cum, rng.random()))]
+        begin = int(rng.integers(0, len(hap) - read_len))
+        r = read_from_flat(hap, refc, begin, read_len, rng)
+        if r is None:
+            continue
+        p, cig, s = r
+        reads.append((p, cig, s, [37] * read_len, 60,
+                      FLAG_REVERSE if rng.random() < 0.5 else 0))
+    return reads
+
+
+def simulate_polyclone(tmp, kb=12, depth=100, read_len=150, seed=31):
+    """Three haploid clones at 0.5/0.3/0.2 in one pooled BAM: two trunk SNVs
+    in every clone and one private SNV per clone.
+    Returns (fasta, BAM, trunk positions, {private position: clone}, length).
+    At the defaults these are the reads of the reference package's polyclone
+    end-to-end test (tests/test_e2e_polyclone_cell.py)."""
+    rng = np.random.default_rng(seed)
+    n = kb * 1000
+    seq = random_sequence(rng, n)
+    fa = write_reference(tmp, seq)
+    clones = [list(seq) for _ in range(3)]
+    trunk = [n // 6, n // 2]
+    private = {n // 3: 0, 2 * n // 3: 1, 5 * n // 6: 2}
+    for p in trunk:
+        for c in clones:
+            c[p] = "T" if seq[p] != "T" else "A"
+    for p, ci in private.items():
+        clones[ci][p] = "G" if seq[p] != "G" else "C"
+    flats = [flatten_haplotype(c) for c in clones]
+    reads = _mixture_reads(flats, [0.5, 0.3, 0.2], int(n * depth / read_len),
+                           read_len, rng)
+    return fa, _write_bam(tmp, "POOL", reads, "chr1", n), trunk, private, n
+
+
+def simulate_cells(tmp, kb=9, depth=15, read_len=150, seed=37,
+                   clone_of_cell=(0, 0, 0, 1, 1, 1)):
+    """Single cells of a founder (two germline hets) and one descendant clone
+    (one somatic SNV), one BAM per cell, each cell's haplotypes read at a
+    Beta(2, 2) allelic-dropout bias. Returns (fasta, BAMs, germline
+    positions, somatic position, length). At the defaults these are the
+    reads of the reference package's cell end-to-end test
+    (tests/test_e2e_polyclone_cell.py)."""
+    rng = np.random.default_rng(seed)
+    n = kb * 1000
+    seq = random_sequence(rng, n)
+    fa = write_reference(tmp, seq)
+    founder = [list(seq), list(seq)]
+    germ = [2 * n // 9, 13 * n // 18]
+    for p in germ:
+        founder[int(rng.random() < 0.5)][p] = "T" if seq[p] != "T" else "A"
+    clone = [list(founder[0]), list(founder[1])]
+    som = 7 * n // 15
+    clone[0][som] = "G" if seq[som] != "G" else "C"
+    bams = []
+    for ci, cl in enumerate(clone_of_cell):
+        flats = [flatten_haplotype(h) for h in (founder if cl == 0 else clone)]
+        w0 = float(rng.beta(2.0, 2.0))
+        reads = _mixture_reads(flats, [w0, 1 - w0], int(n * depth / read_len),
+                               read_len, rng)
+        bams.append(_write_bam(tmp, f"CELL{ci}", reads, "chr1", n))
+    return fa, bams, germ, som, n
+
+
 def truth_to_vcf(truth: dict, seq: str, path: str, contig="chr1") -> str:
     """Write a truth dict as a minimal VCF usable for labelling/eval."""
     lines = ["##fileformat=VCFv4.3",
@@ -205,5 +332,6 @@ __all__ = [
     "flatten_haplotype", "read_from_flat", "sample_read_tuples",
     "write_reference", "write_sample_bam", "random_sequence",
     "random_variant", "apply_variant", "simulate_diploid",
-    "simulate_diploid_reads", "truth_to_vcf",
+    "simulate_diploid_reads", "simulate_tumour_normal", "simulate_polyclone",
+    "simulate_cells", "truth_to_vcf",
 ]

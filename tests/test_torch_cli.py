@@ -142,9 +142,6 @@ UNPORTED = {
     "process_pool": ["--threads", "4"],
     "training_csr": ["--disable-call-filtering", "--annotations", "AD"],
     "caller_trio": ["--caller", "trio"],
-    "caller_cancer": ["--caller", "cancer"],
-    "caller_polyclone": ["--caller", "polyclone"],
-    "caller_cell": ["--caller", "cell"],
     "caller_population": ["--caller", "population"],
 }
 

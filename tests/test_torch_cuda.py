@@ -266,3 +266,76 @@ def test_cli_on_cuda_writes_the_cpu_records(cuda, tmp_path, monkeypatch,
     assert la.ROUTING.job_sets[("populate", kernel)] > 0
     assert la.ROUTING.job_sets[("assignment", kernel)] > 0
     assert lines["cuda"] == lines["cpu"] and len(lines["cpu"]) > 3
+
+
+@pytest.mark.parametrize("fn", ["fexp", "flog", "flgamma", "fdigamma",
+                                "fsoftmax", "fsum"])
+def test_vb_math_on_cuda_gives_the_cpu_bits(cuda, fn):
+    from octopus_tpu_torch.core.models import vb_math
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((64, 3, 517)).astype(np.float32)
+    if fn in ("flog", "flgamma", "fdigamma"):
+        x = np.exp(3 * x).astype(np.float32)
+    elif fn == "fexp":
+        x = -np.abs(20 * x)
+    args = {"fsoftmax": (1,), "fsum": (-1,)}.get(fn, ())
+    f = getattr(vb_math, fn)
+    host = f(torch.from_numpy(x), *args)
+    card = f(torch.from_numpy(x).to(cuda), *args)
+    assert torch.equal(card.cpu(), host)
+
+
+@pytest.mark.parametrize("engine", ["subclone", "mixture_mixture"])
+def test_vb_on_cuda_gives_the_cpu_bits(cuda, monkeypatch, engine):
+    from octopus_tpu_torch.core.models import mixture_mixture_vb as mm
+    from octopus_tpu_torch.core.models import subclone_vb as vb
+    monkeypatch.setenv("OCTOPUS_TPU_VB_DEVICE_MIN", "0")
+    rng = np.random.default_rng(4)
+    lnL = -rng.exponential(2.0, (6, 300))
+    lnL[rng.integers(0, 6, 300), np.arange(300)] = -0.05
+    tuples = np.stack([rng.choice(6, 3, replace=False) for _ in range(40)])
+    out = {}
+    for device in ("cpu", "cuda"):
+        vb.COUNTS.reset()
+        if engine == "subclone":
+            inf = vb.SubcloneModel(n_seeds=3, n_iter=50, device=device
+                                   ).evaluate(tuples, lnL)
+            out[device] = (inf.genotype_log_evidences, inf.map_alphas)
+        else:
+            cells = [-np.random.default_rng(n).exponential(2.0, (5, 20 + 7 * n))
+                     for n in range(6)]
+            inf = mm.VariationalBayesMixtureMixtureModel(device=device
+                                                         ).evaluate(
+                cells, [[0, 1], [0, 1, 2], [0, 1, 3]])
+            out[device] = (np.asarray([inf.log_evidence]),
+                           inf.cell_responsibilities, inf.alphas)
+        assert (vb.COUNTS.device, vb.COUNTS.host) == (
+            (1, 0) if device == "cuda" else (0, 1))
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert np.array_equal(got, want)
+
+
+def test_cancer_cli_on_cuda_writes_the_cpu_records(cuda, tmp_path,
+                                                   monkeypatch):
+    from octopus_tpu_torch.cli import main
+    from octopus_tpu_torch.core.likelihood import likelihood_array as la
+    from octopus_tpu_torch.core.models import subclone_vb as vb
+    from octopus_tpu_torch.utils.synthetic import simulate_tumour_normal
+    fa, bam_n, bam_t, _, somatic, _ = simulate_tumour_normal(
+        str(tmp_path), kb=8, depth=60, seed=7)
+    monkeypatch.setenv("OCTOPUS_TPU_HOST_HMM_MAX", "0")
+    monkeypatch.setenv("OCTOPUS_TPU_VB_DEVICE_MIN", "0")
+    lines = {}
+    for device in ("cpu", "cuda"):
+        out = tmp_path / f"{device}.vcf"
+        la.ROUTING.reset()
+        vb.COUNTS.reset()
+        assert main(["-R", fa, "-I", bam_n, bam_t, "-o", str(out),
+                     "--device", device, "--caller", "cancer",
+                     "--normal-sample", "NORMAL"]) == 0
+        lines[device] = [line for line in out.read_text().splitlines()
+                         if not line.startswith("##")]
+    assert la.ROUTING.job_sets[("populate", "pairhmm")] > 0
+    assert vb.COUNTS.device > 0 and vb.COUNTS.host == 0
+    assert lines["cuda"] == lines["cpu"]
+    assert sum("SOMATIC" in line for line in lines["cpu"]) >= len(somatic) - 1

@@ -9,12 +9,14 @@ Eight phases, each printing JSON lines:
    kernels (csrc/pairhmm.cu, pairhmm_lanes.cu, pairhmm_cost.cu), all from
    the sources in the checkout, all at the same time; ptxas registers and
    spills per kernel, band and variant, and each variant's shared memory;
+   a spill in any variant of csrc/pairhmm_cost.cu fails the run;
 2. kernels: every kernel runs on random batches made from a numpy seed, at
    bench.py's shape, at bands 16 and 32, at R = 2000 and at the main path's
    own shapes (1 to 519 pairs, R = 160), and must equal its plain PyTorch
-   twin on the same CUDA tensors bit for bit, in every variant the two
-   main-path kernels are built with (csrc/pairhmm.cu: T threads a pair,
-   split chain or wavefront; csrc/pairhmm_lanes.cu: two lane widths);
+   twin on the same CUDA tensors bit for bit, in every variant the kernels
+   are built with (csrc/pairhmm.cu: T threads a pair, split chain or
+   wavefront; csrc/pairhmm_lanes.cu: two lane widths;
+   csrc/pairhmm_cost.cu: T threads a pair);
    kernel, call, plain twin and each variant are timed with CUDA events
    (median of 7 runs after a warm-up, plain of 5), beside the variant the
    wrapper's rule chose, one trivial launch (launch_floor_ms), 20 launches
@@ -22,8 +24,9 @@ Eight phases, each printing JSON lines:
    below 4096 pairs, 20 launches replayed from a CUDA graph (graph_ms: card
    time only). A sweep of launch sizes from 1024 to 32768 pairs (R = 160,
    bands 8 and 16) times the latency variants (wavefront, full lane width)
-   against the throughput ones (split chain, half lane width), which sets
-   the wrapper's WAVE_BELOW (variant_sweep);
+   against the throughput ones (split chain, half lane width, fewer threads
+   a pair), which sets the wrapper's WAVE_BELOW and COST_THREADS_BY_B
+   (variant_sweep);
 3. gate_sweep: job sets of 1 to 1024 pairs (R = 160, band 8) scored by the
    host DP and by the card call with its copies; the crossover;
 4. main_path: a simulated 30x diploid sample is called in memory through
@@ -140,7 +143,7 @@ def card_line() -> str:
 TEMPLATE_PARAMS = {"pairhmm": ("D", "T"),
                    "pairhmm_wave": ("D", "W"),
                    "pairhmm_lanes": ("D", "LW"),
-                   "pairhmm_cost": ("D",)}
+                   "pairhmm_cost": ("D", "T")}
 
 
 def ptxas_table(log: str, kernel: str) -> dict:
@@ -179,6 +182,10 @@ def smem_table(pb) -> dict:
         for LW in pb.lanes_widths(pad):
             out[f"pairhmm_lanes_D{D}_LW{LW}"] = pb.smem_bytes("pairhmm_lanes",
                                                               pad, LW)
+        for T in pb.THREADS:
+            if pb.cost_threads_ok(T, pad):
+                out[f"pairhmm_cost_D{D}_T{T}"] = pb.smem_bytes("pairhmm_cost",
+                                                               pad, T)
     return out
 
 
@@ -190,13 +197,18 @@ def phase_build():
         jobs += [pool.submit(pb.kernel_library, name) for name in KERNELS]
         for job in jobs:
             job.result()
+    ptxas = {n: ptxas_table(_build.BUILDS[n]["log"], n) for n in KERNELS}
     emit({"phase": "build",
           "host_extension_loaded": "octopus_tpu_torch._native" in sys.modules,
           "host_extension_s": _build.BUILDS["_native"]["seconds"],
           "nvcc_s": {n: _build.BUILDS[n]["seconds"] for n in KERNELS},
-          "ptxas": {n: ptxas_table(_build.BUILDS[n]["log"], n)
-                    for n in KERNELS},
+          "ptxas": ptxas,
           "smem_bytes": smem_table(pb)})
+    # the cost kernel's design keeps every band in registers (no spills)
+    spills = {v: r for v, r in ptxas["pairhmm_cost"].items()
+              if r["spill_store_bytes"] or r["spill_load_bytes"]}
+    if spills or not ptxas["pairhmm_cost"]:
+        raise AssertionError(f"pairhmm_cost spills or is missing: {spills}")
 
 
 # ---------------------------------------------------------------------------
@@ -325,12 +337,19 @@ def cost_bound(B, R, pad):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def kernel_variants(pb, args, pad):
-    """kernel -> (one launch on prepared inputs, the call, its plain twin,
-    the bound function) for batch-major CUDA tracks `args`."""
+def cost_inputs(pb, args, pad):
+    """The cost kernel's prepared inputs for batch-major CUDA tracks: the
+    (R*D, B) match-cost tensor and opn/ext in (W, B) layout."""
     cm = pb.match_cost_tensor(args[0], args[1], args[2], args[5], args[6],
                               pad=pad)
     opnT, extT = (a.t().contiguous() for a in args[3:5])
+    return cm, opnT, extT
+
+
+def kernel_variants(pb, args, pad, cost):
+    """kernel -> (one launch on prepared inputs, the call, its plain twin,
+    the bound function) for batch-major CUDA tracks `args`."""
+    cm, opnT, extT = cost
     return {
         "pairhmm": (lambda: pb.launch_kernel(args, pad=pad),
                     lambda: pb.pairhmm_scores_cuda(*args, pad=pad),
@@ -348,12 +367,20 @@ def kernel_variants(pb, args, pad):
     }
 
 
-def build_variants(pb, args, pad):
+def build_variants(pb, args, pad, cost):
     """kernel -> {variant name: one launch}: every T (threads a pair) of
-    csrc/pairhmm.cu, split chain ("T4") and wavefront ("W4"), and every LW
-    (lanes a pair) of csrc/pairhmm_lanes.cu ("LW16")."""
+    csrc/pairhmm.cu, split chain ("T4") and wavefront ("W4"), every LW
+    (lanes a pair) of csrc/pairhmm_lanes.cu ("LW16"), and every T of
+    csrc/pairhmm_cost.cu ("T4") on the cost tensor `cost` = (cm, opn, ext)
+    in kernel layout."""
     D = 2 * pad
-    out = {"pairhmm": {}, "pairhmm_lanes": {}}
+    out = {"pairhmm": {}, "pairhmm_lanes": {}, "pairhmm_cost": {}}
+    cm, opnT, extT = cost
+    for T in pb.THREADS:
+        if pb.cost_threads_ok(T, pad):
+            out["pairhmm_cost"][f"T{T}"] = (
+                lambda T=T: pb.launch_cost(cm, opnT, extT, pad=pad,
+                                           threads=T))
     for T in pb.THREADS:
         if T <= D:
             out["pairhmm"][f"T{T}"] = (
@@ -369,6 +396,8 @@ def build_variants(pb, args, pad):
 
 
 def chosen_variant(pb, kernel, B, pad):
+    if kernel == "pairhmm_cost":
+        return f"T{pb.cost_threads(B, pad)}"
     if kernel == "pairhmm":
         T = pb.pairhmm_threads(B, pad)
         return f"{'W' if pb.pairhmm_wave(B, pad) else 'T'}{T}"
@@ -398,18 +427,19 @@ KERNEL_CASES += [(f"sweep_B{B}_R160_band{pad}", B, 160, pad, False)
 
 def variant_sweep(results):
     """Per band, the fastest latency variant (csrc/pairhmm.cu's wavefront,
-    csrc/pairhmm_lanes.cu at full lane width) against the fastest
-    throughput variant (split chain, half lane width) at each launch size
-    of the sweep and the bench shape; the least size from which the
-    throughput variant is faster at every larger size. WAVE_BELOW is set
-    from it."""
+    csrc/pairhmm_lanes.cu at full lane width, csrc/pairhmm_cost.cu at 16
+    threads a pair) against the fastest throughput variant (split chain,
+    half lane width, fewer threads a pair) at each launch size of the sweep
+    and the bench shape, and the fastest variant of all; the least size
+    from which the throughput variant is faster at every larger size.
+    WAVE_BELOW and COST_THREADS_BY_B are set from it."""
     def latency(kernel, variant, variants):
         if kernel == "pairhmm":
             return variant.startswith("W")
-        return variant == max(variants, key=lambda v: int(v[2:]))
+        return variant == max(variants, key=lambda v: int(v.lstrip("LWT")))
 
     rows = {}
-    for kernel in ("pairhmm", "pairhmm_lanes"):
+    for kernel in ("pairhmm", "pairhmm_lanes", "pairhmm_cost"):
         for r in results[kernel]:
             if not (r["case"].startswith("sweep_") or r["R"] == 150):
                 continue
@@ -419,7 +449,8 @@ def variant_sweep(results):
                 split[latency(kernel, v, vm)].append(ms)
             rows.setdefault((kernel, r["pad"]), []).append(
                 {"B": r["B"], "R": r["R"], "latency_ms": min(split[True]),
-                 "throughput_ms": min(split[False]), "chosen": r["chosen"]})
+                 "throughput_ms": min(split[False]), "chosen": r["chosen"],
+                 "fastest": min(vm, key=vm.get)})
     out = []
     for (kernel, pad), rs in sorted(rows.items()):
         rs.sort(key=lambda x: x["B"])
@@ -443,9 +474,10 @@ def phase_kernels(cases=KERNEL_CASES):
     for name, B, R, pad, heavy in cases:
         host = random_batch(rng, B, R, pad, heavy_indel=heavy)
         args = [torch.from_numpy(a).cuda() for a in host]
-        variants = build_variants(pb, args, pad)
+        cost = cost_inputs(pb, args, pad)
+        variants = build_variants(pb, args, pad, cost)
         for kernel, (launch, call, plain, bound) in kernel_variants(
-                pb, args, pad).items():
+                pb, args, pad, cost).items():
             got = call()
             want = plain()
             torch.cuda.synchronize()
@@ -482,7 +514,7 @@ def phase_kernels(cases=KERNEL_CASES):
                     row["graph_ms"] = graph_ms(launch)
             emit({"phase": "kernels", **row})
             results[kernel].append(row)
-        del args, variants
+        del args, variants, cost
         torch.cuda.empty_cache()
     return results
 
@@ -1285,18 +1317,36 @@ def main() -> int:
         return 2
     import octopus_tpu_torch  # noqa: F401  (fails outside the checkout)
 
-    phase_build()
-    kernel_rows = phase_kernels()
-    variant_sweep(kernel_rows)
-    phase_gate_sweep()
-    main_path_launches, main_path_err = phase_main_path()
+    seconds = {}
+
+    @contextlib.contextmanager
+    def timed(name):
+        t0 = time.perf_counter()
+        yield
+        seconds[name] = time.perf_counter() - t0
+
+    with timed("build"):
+        phase_build()
+    with timed("kernels"):
+        kernel_rows = phase_kernels()
+        variant_sweep(kernel_rows)
+    with timed("gate_sweep"):
+        phase_gate_sweep()
+    with timed("main_path"):
+        main_path_launches, main_path_err = phase_main_path()
     emit({"phase": "main_path_kernel_launches",
           "pairhmm": main_path_launches})
-    cli_launches, cli_errs = phase_cli()
-    phase_vb_gate_sweep()
-    cancer_launches, cancer_errs = phase_cancer_cli()
+    with timed("cli"):
+        cli_launches, cli_errs = phase_cli()
+    with timed("vb_gate_sweep"):
+        phase_vb_gate_sweep()
+    with timed("cancer_cli"):
+        cancer_launches, cancer_errs = phase_cancer_cli()
     for kind in ("polyclone", "cell"):
-        phase_vb_sample_cli(kind)
+        with timed(f"{kind}_cli"):
+            phase_vb_sample_cli(kind)
+    # host-clock seconds of each phase, to keep the script inside its limit
+    emit({"phase": "phase_seconds", **seconds})
     print(card_line(), flush=True)
     sources = {"pairhmm": "octopus_tpu_torch/csrc/pairhmm.cu",
                "pairhmm_lanes": "octopus_tpu_torch/csrc/pairhmm_lanes.cu",

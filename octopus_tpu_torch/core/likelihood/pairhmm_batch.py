@@ -29,8 +29,10 @@ device and that the CPU tests hold against the reference:
   `pairhmm_scores_lanes_plain`, which ports `_pallas_kernel_v8`'s own
   arithmetic (`pre = cumsum(ext)`, `_min_scan`);
 * `pairhmm_scores_cost_cuda` (csrc/pairhmm_cost.cu, over a match-cost
-  tensor built outside the kernel; replaces Pallas v2) and its twin
-  `pairhmm_scores_cost_plain`.
+  tensor built outside the kernel, T threads a pair in the split chain, cm
+  staged in shared memory; replaces Pallas v2) and its twin
+  `pairhmm_scores_cost_plain`, which with threads=T runs the kernel's
+  split chain.
 
 `pairhmm_scores` dispatches by the device of its inputs: the v12/v9
 kernel on CUDA tensors and its twin on the CPU; with
@@ -263,6 +265,13 @@ def _check_shapes(tgt, qual, win, opn, ext, mask, prior, pad: int):
     return B, R, W
 
 
+def _check_threads(threads: int | None, pad: int) -> None:
+    if threads is not None and threads not in THREADS:
+        raise ValueError(f"threads {threads} not in {THREADS}")
+    if threads is not None and threads > 2 * pad:
+        raise ValueError(f"threads {threads} > band {2 * pad}")
+
+
 def _kernel_layout(*tracks) -> list[torch.Tensor]:
     """Batch-major tracks as contiguous int32 (rows, B)."""
     return [a.to(torch.int32).t().contiguous() for a in tracks]
@@ -276,10 +285,7 @@ def pairhmm_scores_plain(tgt, qual, win, opn, ext, mask, prior, *, pad: int = 8,
     threads=T runs the deletion chain as csrc/pairhmm.cu does with T
     threads a pair (`_deletion_split`); the scores are the same."""
     _check_shapes(tgt, qual, win, opn, ext, mask, prior, pad)
-    if threads is not None and threads not in THREADS:
-        raise ValueError(f"threads {threads} not in {THREADS}")
-    if threads is not None and threads > 2 * pad:
-        raise ValueError(f"threads {threads} > band {2 * pad}")
+    _check_threads(threads, pad)
     return _hmm_rows(*_kernel_layout(tgt, qual, win, opn, ext, mask, prior),
                      pad, nuc_prior, threads)
 
@@ -307,17 +313,21 @@ def match_cost_tensor(tgt, qual, win, mask, prior, *, pad: int) -> torch.Tensor:
 
 def pairhmm_scores_cost_plain(tgt, qual, win, opn, ext, mask, prior, *,
                               pad: int = 8,
-                              nuc_prior: int = DEFAULT_NUC_PRIOR
-                              ) -> torch.Tensor:
+                              nuc_prior: int = DEFAULT_NUC_PRIOR,
+                              threads: int | None = None) -> torch.Tensor:
     """Plain twin of the cost kernel (Pallas v2: the XLA wavefront over a
-    whole match-cost tensor) on any device: (B,) int32 scores."""
+    whole match-cost tensor) on any device: (B,) int32 scores.
+
+    threads=T runs the deletion chain as csrc/pairhmm_cost.cu does with T
+    threads a pair (`_deletion_split`); the scores are the same."""
     _check_shapes(tgt, qual, win, opn, ext, mask, prior, pad)
+    _check_threads(threads, pad)
     R = tgt.shape[1]
     D = 2 * pad
     cm = match_cost_tensor(tgt, qual, win, mask, prior, pad=pad)
     opnT, extT = _kernel_layout(opn, ext)
     return _wavefront(lambda y: cm[(y - 1) * D:y * D], opnT, extT, R, pad,
-                      nuc_prior)
+                      nuc_prior, threads)
 
 
 # ---------------------------------------------------------------------------
@@ -356,11 +366,12 @@ KERNEL_COUNTS = {"pairhmm": COUNTS, "pairhmm_lanes": COUNTS_LANES,
 # pairhmm_lanes its lanes a pair.
 _ENTRY = {"pairhmm": ("pairhmm_launch", 8, 2),
           "pairhmm_lanes": ("pairhmm_lanes_launch", 8, 1),
-          "pairhmm_cost": ("pairhmm_cost_launch", 4, 0)}
+          "pairhmm_cost": ("pairhmm_cost_launch", 4, 1)}
 # kernel -> (C function (pad, *variant) -> dynamic shared memory of a
 # block, number of variant ints)
 _SMEM_ENTRY = {"pairhmm": ("pairhmm_smem_bytes", 2),
-               "pairhmm_lanes": ("pairhmm_lanes_smem_bytes", 1)}
+               "pairhmm_lanes": ("pairhmm_lanes_smem_bytes", 1),
+               "pairhmm_cost": ("pairhmm_cost_smem_bytes", 1)}
 _libs: dict = {}
 
 # The rule for both kernels' variants, from chip_smoke.py's timing of every
@@ -389,6 +400,27 @@ def pairhmm_wave(B: int, pad: int) -> bool:
 def wave_ok(threads: int, pad: int) -> bool:
     """csrc/pairhmm.cu has a wavefront variant at this T and pad."""
     return threads >= 2 and 2 * pad // threads >= 2
+
+
+# csrc/pairhmm_cost.cu's rule, read off chip_smoke.py's timing of every T
+# at every kernel case (variant_sweep; PERF.md): (launches below this many
+# pairs, threads a pair). Under 2048 pairs only 16 threads a pair fill the
+# card; up to 16384, 4 (a shorter carry a row); above, 2 (the bench shape).
+COST_THREADS_BY_B = ((2048, 16), (16384, 4), (None, 2))
+# a thread of csrc/pairhmm_cost.cu holds at most this many diagonals
+COST_MAX_DIAGONALS = 16
+
+
+def cost_threads_ok(threads: int, pad: int) -> bool:
+    """csrc/pairhmm_cost.cu has a variant with `threads` a pair at `pad`."""
+    return threads in THREADS and 2 * pad // COST_MAX_DIAGONALS <= threads <= 2 * pad
+
+
+def cost_threads(B: int, pad: int) -> int:
+    """Threads a pair for a csrc/pairhmm_cost.cu launch of B pairs (at
+    least D/COST_MAX_DIAGONALS)."""
+    T = next(t for below, t in COST_THREADS_BY_B if below is None or B < below)
+    return max(T, 2 * pad // COST_MAX_DIAGONALS)
 
 
 def lanes_width(B: int, pad: int) -> int:
@@ -437,7 +469,8 @@ def kernel_library(name: str = "pairhmm"):
 def smem_bytes(name: str, pad: int, *variant: int) -> int:
     """Dynamic shared memory of one block of kernel `name` (built on first
     use) at `pad` and its variant: (threads a pair, wavefront) for pairhmm,
-    (lanes a pair,) for pairhmm_lanes."""
+    (lanes a pair,) for pairhmm_lanes, (threads a pair,) for
+    pairhmm_cost."""
     n = getattr(kernel_library(name), _SMEM_ENTRY[name][0])(pad, *variant)
     if n < 0:
         raise ValueError(f"{name}: no variant {variant} at pad {pad}")
@@ -575,17 +608,23 @@ def pairhmm_scores_cost_cuda(tgt, qual, win, opn, ext, mask, prior, *,
 
 
 def launch_cost(cm: torch.Tensor, opn: torch.Tensor, ext: torch.Tensor, *,
-                pad: int, nuc_prior: int = DEFAULT_NUC_PRIOR) -> torch.Tensor:
+                pad: int, nuc_prior: int = DEFAULT_NUC_PRIOR,
+                threads: int | None = None) -> torch.Tensor:
     """One launch of csrc/pairhmm_cost.cu: cm (R*D, B) and opn/ext (W, B),
-    contiguous int32 on one CUDA device."""
+    contiguous int32 on one CUDA device. threads (T a pair) defaults to
+    `cost_threads`."""
     D = 2 * pad
     RD, B = cm.shape
     W = opn.shape[0]
     if RD % D or ext.shape != opn.shape or opn.shape[1] != B:
         raise ValueError(f"cm {tuple(cm.shape)} / opn {tuple(opn.shape)} / "
                          f"ext {tuple(ext.shape)} do not fit band {D}")
+    T = cost_threads(B, pad) if threads is None else threads
+    if pad not in PADS or not cost_threads_ok(T, pad):
+        raise ValueError(f"no csrc/pairhmm_cost.cu variant at {T} threads, "
+                         f"band {D}")
     return _launch("pairhmm_cost", [cm, opn, ext], B, RD // D, W, pad,
-                   nuc_prior)
+                   nuc_prior, (T,))
 
 
 def unrolled_hmm() -> bool:
@@ -642,6 +681,8 @@ __all__ = [
     "wave_ok",
     "lanes_width",
     "lanes_widths",
+    "cost_threads",
+    "cost_threads_ok",
     "THREADS",
     "scorer_name",
     "COUNTS",

@@ -166,6 +166,32 @@ def test_every_variant_matches_golden_binary(cuda, kind):
             launch.__name__, kw)
 
 
+# csrc/pairhmm_cost.cu: the main path's ragged launch sizes at R = 160 and
+# every band, R = 2000 (the cm ring and window rings wrap many times), and
+# batches whose B is a multiple of 4 (16-byte copies) beside ragged ones
+# (4-byte copies)
+COST_SHAPES = ([(B, 160, pad) for pad in (8, 16, 32) for B in (1, 9, 37, 519)]
+               + [(4096, 2000, 8), (129, 2000, 32), (300, 2000, 16),
+                  (1024, 160, 16), (65536, 150, 8)])
+
+
+@pytest.mark.parametrize("B,R,pad", COST_SHAPES)
+def test_every_cost_variant_matches_plain(cuda, B, R, pad):
+    host = random_batch(B * 3 + R + pad, B, R, pad)
+    args = [torch.from_numpy(a).to(cuda) for a in host]
+    cm = pb.match_cost_tensor(*(args[i] for i in (0, 1, 2, 5, 6)), pad=pad)
+    opnT, extT = (a.t().contiguous() for a in args[3:5])
+    want = pb.pairhmm_scores_cost_plain(*args, pad=pad)
+    built = [T for T in pb.THREADS if pb.cost_threads_ok(T, pad)]
+    before = pb.COUNTS_COST.launches
+    for T in built:
+        got = pb.launch_cost(cm, opnT, extT, pad=pad, threads=T)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), T
+    assert pb.launch_cost(cm, opnT, extT, pad=pad).equal(want)
+    assert pb.COUNTS_COST.launches == before + len(built) + 1
+
+
 @pytest.mark.parametrize("kind", sorted(GOLDEN_CASES))
 def test_kernel_matches_golden_binary(cuda, kind):
     if not os.path.exists(HARNESS):

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Eight phases, each printing JSON lines:
+Nine phases, each printing JSON lines:
 
 1. build: g++ builds the host extension and nvcc builds the three CUDA
    kernels (csrc/pairhmm.cu, pairhmm_lanes.cu, pairhmm_cost.cu), all from
@@ -49,7 +49,7 @@ Eight phases, each printing JSON lines:
    PASS records and leave FACET_MISSES at 0; each gate-0 run must launch
    its kernel from both populate and read assignment;
 6. vb_gate_sweep: SubcloneModel.evaluate (K = 3, 2 seeds, 40 iterations,
-   the cancer caller's) at 128 and 512 reads and 1 to 4096 genotypes, on
+   the cancer caller's) at 128 reads and 1 to 4096 genotypes, on
    CPU torch and on the card with its copies; host-clock medians of 7 runs
    in turns (the host's capped at 5 s a size), and the crossover in real
    elements (G*S*K*N), which sets subclone_vb.VB_DEVICE_MIN;
@@ -59,9 +59,9 @@ Eight phases, each printing JSON lines:
    --normal-sample NORMAL. An untimed checked run with both gates at 0
    (OCTOPUS_TPU_HOST_HMM_MAX and OCTOPUS_TPU_VB_DEVICE_MIN) keeps every
    pair-HMM launch and every VB evaluation and holds them against the plain
-   twin (bit for bit) and the same evaluation on the CPU (1e-5; the rows
+   twin and the same evaluation on the CPU (bit for bit; the rows
    of the largest on a sample, check_vb). Then timed
-   runs in turns: default gates, gates 0, default gates. Every run must
+   runs in turns: default gates, gates 0. Every run must
    write the same records; each gates-0 run must launch kernel #1 from
    populate and read assignment and run VB on the card; germline recall
    and precision must reach 0.95 and somatic 0.9;
@@ -69,6 +69,16 @@ Eight phases, each printing JSON lines:
    tests/test_e2e_polyclone_cell.py (12 kb, 3 clones, 100x; 9 kb, 6 cells,
    15x) through the CLI once on the card with both gates at 0, every VB
    evaluation held against the CPU's, and those tests' truth checks.
+9. population_cli and trio_cli: bench_e2e_multi.py's population (3
+   samples) and trio (MOM, DAD, KID with 10 de novo SNVs) inputs, 100 kb at
+   30x, uncut (simulate_population, simulate_trio, written untimed), through
+   the CLI with --caller population and with -M MOM -F DAD. An untimed
+   checked run with the host-DP gate at 0 keeps every kernel #1 launch
+   (from populate and read assignment) and holds it against the plain twin
+   bit for bit; then timed runs in turns: default gate, gate 0, default
+   gate. Every run must write the same records, each gate-0 run must
+   launch kernel #1 from both sources, and the accuracy must equal the
+   reference CLI's on the same BAMs (MULTI_BARS).
 
 Then it prints the card's name and power limit, the kernel table, and as
 its last line {"ok": true, "device": {...}}. Any failure raises, and the
@@ -951,8 +961,9 @@ def phase_cli(device="cuda", kb=CLI_REGION_KB):
 # phase 6: the VB size gate
 # ---------------------------------------------------------------------------
 
-VB_TOL = 1e-5
-VB_SWEEP_READS = (128, 512)
+# the card's VB evaluations must equal the CPU's bit for bit (vb_math)
+VB_TOL = 0.0
+VB_SWEEP_READS = (128,)
 VB_SWEEP_GENOTYPES = (1, 4, 16, 64, 256, 1024, 4096)
 
 
@@ -972,7 +983,7 @@ def phase_vb_gate_sweep(reps=7, host_budget_s=5.0):
     40 iterations, the cancer caller's tumour concentrations. Host-clock
     medians of `reps` runs each, host and card in turns; the host stops
     early once its runs of a size have taken `host_budget_s` (one run of
-    4096 genotypes at 512 reads takes ~18 s there), and the row says how
+    4096 genotypes takes ~7 s there), and the row says how
     many it made. The crossover is the least count of real elements
     G*S*K*N from which the card is faster at every larger size."""
     import os
@@ -1077,8 +1088,8 @@ VB_CHECK_ROWS = 2048
 
 
 def check_vb(kept, phase):
-    """Every kept evaluation run again on the CPU: ELBO and Dirichlet
-    parameters within VB_TOL relative, responsibilities within VB_TOL.
+    """Every kept evaluation run again on the CPU: ELBO, Dirichlet
+    parameters and responsibilities equal bit for bit (VB_TOL = 0).
     Genotype rows are independent and vb_math reduces each in a fixed
     order, so a subclone evaluation of more than VB_CHECK_ROWS rows (the
     cancer caller's somatic tuples of a dense region reach 31,002, ~1 min
@@ -1117,9 +1128,11 @@ def check_vb(kept, phase):
     return worst
 
 
-def run_vb_cli(tmp, phase, label, argv, env, device, timed):
-    """One CLI run with the VB callers: the environment set, every counter
-    reset; returns (record lines, the JSON row)."""
+def run_caller_cli(tmp, phase, label, argv, env, device, timed):
+    """One CLI run: the environment set, every counter reset; returns
+    (record lines, the JSON row). On the card, a run with the host-DP gate
+    at 0 must launch kernel #1 from populate and read assignment, and one
+    with the VB gate at 0 must run every VB evaluation there."""
     import os
     import torch
     from octopus_tpu_torch import cli
@@ -1170,11 +1183,12 @@ def run_vb_cli(tmp, phase, label, argv, env, device, timed):
            "records": len(lines),
            "pass_records": sum(line.split("\t")[6] == "PASS"
                                for line in lines)}
-    if env and device == "cuda":
+    if device == "cuda" and env.get("OCTOPUS_TPU_HOST_HMM_MAX") == "0":
         for src in ("populate", "assignment"):
             if not la.ROUTING.job_sets[(src, "pairhmm")]:
                 raise AssertionError(f"{label}: kernel #1 never ran from "
                                      f"{src}")
+    if device == "cuda" and env.get("OCTOPUS_TPU_VB_DEVICE_MIN") == "0":
         if not vb.COUNTS.device or vb.COUNTS.host:
             raise AssertionError(f"{label}: VB ran {vb.COUNTS.host} times on "
                                  f"the host, {vb.COUNTS.device} on the card")
@@ -1214,8 +1228,8 @@ def phase_cancer_cli(device="cuda", kb=CANCER_KB):
                 "--normal-sample", "NORMAL"]
 
         def run(label, timed):
-            lines, row = run_vb_cli(tmp, "cancer_cli", label, argv,
-                                    VB_GATES[label], device, timed)
+            lines, row = run_caller_cli(tmp, "cancer_cli", label, argv,
+                                        VB_GATES[label], device, timed)
             germ_r, germ_p = accuracy(somatic_lines(lines, False), germline)
             som_r, som_p = accuracy(somatic_lines(lines, True), somatic)
             row.update({
@@ -1241,8 +1255,8 @@ def phase_cancer_cli(device="cuda", kb=CANCER_KB):
             errs["vb"] = check_vb(kept_evals, "cancer_cli_vb")
         runs = [checked]
         launches = None
-        # in turns, so that neither routing gains from running later
-        for label in ("default_gates", "gates0", "default_gates"):
+        # in turns after the checked gates-0 run
+        for label in ("default_gates", "gates0"):
             lines, row = run(label, timed=True)
             runs.append(lines)
             if label == "gates0":
@@ -1282,7 +1296,7 @@ def phase_vb_sample_cli(kind, device="cuda"):
             args = ["--caller", "cell", "--max-phylogeny-size", "2"]
         kept = []
         with kept_vb(kept):
-            lines, row = run_vb_cli(
+            lines, row = run_caller_cli(
                 tmp, f"{kind}_cli", "gates0",
                 ["-R", fa, "-I", *bams, "-T", "chr1", *args],
                 VB_GATES["gates0"], device, timed=True)
@@ -1304,6 +1318,151 @@ def phase_vb_sample_cli(kind, device="cuda"):
         if not ok:
             raise AssertionError(f"{kind}_cli: truth check failed: {row}")
         return row
+    finally:
+        for k in CLI_ENV_KEYS:
+            os.environ.pop(k, None)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# bench_e2e_multi.py's population and trio configurations, uncut: 100 kb,
+# three samples at 30x
+MULTI_KB = 100
+MULTI_DEPTH = 30
+MULTI = {"population": {"seed": 9, "argv": ["--caller", "population"]},
+         "trio": {"seed": 5, "argv": ["-M", "MOM", "-F", "DAD"]}}
+# what the reference CLI (octopus_tpu, JAX on the CPU) reaches on the same
+# BAMs, by bench_e2e_multi.py's own measures (`JAX_PLATFORMS=cpu python
+# bench_e2e_multi.py population|trio 100 30`): 60 of 61 population sites,
+# no false positive, every genotype right; all 10 de novo SNVs flagged and
+# none else, 1 of them PASS at 30x, every germline site called
+MULTI_BARS = {"population": {"recall": 60 / 61, "fp": 0,
+                             "gt_concordance": 1.0},
+              "trio": {"caller_denovo_recall": 1.0, "caller_denovo_fp": 0,
+                       "denovo_recall": 0.1, "denovo_fp": 0,
+                       "germline_recall": 1.0}}
+MULTI_GATES = {"default_gate": {}, "gate0": {"OCTOPUS_TPU_HOST_HMM_MAX": "0"}}
+
+
+def _records(lines, pass_only=True):
+    """(0-based position, INFO flags, per-sample GT) of records with an
+    ALT, PASS only by default."""
+    out = []
+    for line in lines:
+        cols = line.split("\t")
+        if cols[4] == "." or (pass_only and cols[6] != "PASS"):
+            continue
+        keys = cols[8].split(":")
+        gts = [dict(zip(keys, v.split(":"))).get("GT", ".") for v in cols[9:]]
+        out.append((int(cols[1]) - 1, set(cols[7].split(";")), gts))
+    return out
+
+
+def multi_accuracy(kind, lines, truth):
+    """bench_e2e_multi.py's measures: population recall, false positives and
+    genotype concordance on PASS records; trio de novo recall and false
+    positives among all DENOVO-flagged records (the caller's) and among
+    PASS ones, and germline recall."""
+    def near(points, p, tol=5):
+        return any(abs(p - q) <= tol for q in points)
+
+    recs = _records(lines)
+    if kind == "population":
+        called = {p for p, _, _ in recs} | {p + 1 for p, _, _ in recs}
+        ok = tot = 0
+        for p, _, gts in recs:
+            match = [q for q in sorted(truth) if abs(q - p) <= 5]
+            if not match:
+                continue
+            for gt, want in zip(gts, truth[match[0]]):
+                try:
+                    got = sorted(int(x) > 0 for x in gt.replace("|", "/")
+                                 .split("/"))
+                except ValueError:
+                    continue
+                tot += 1
+                ok += got == sorted(bool(x) for x in want)
+        return {"recall": sum(near(called, p) for p in truth) / len(truth),
+                "fp": sum(not near(truth, p) and not near(truth, p + 1)
+                          for p, _, _ in recs),
+                "gt_concordance": ok / max(tot, 1)}
+    germline, denovo = truth
+    dn = {p for p, info, _ in recs if "DENOVO" in info}
+    other = {p for p, info, _ in recs if "DENOVO" not in info}
+    all_dn = {p for p, info, _ in _records(lines, pass_only=False)
+              if "DENOVO" in info}
+    return {"denovo_recall": sum(near(dn, p) for p in denovo) / len(denovo),
+            "denovo_fp": sum(not near(denovo, p) for p in dn),
+            "caller_denovo_recall": (sum(near(all_dn, p) for p in denovo)
+                                     / len(denovo)),
+            "caller_denovo_fp": sum(not near(denovo, p) for p in all_dn),
+            "germline_recall": (sum(near(other | dn, p) for p in germline)
+                                / max(len(germline), 1))}
+
+
+def phase_multi_cli(kind, device="cuda", kb=MULTI_KB):
+    """The population or trio caller through the CLI on bench_e2e_multi.py's
+    100 kb three-sample input: an untimed checked run with the host-DP gate
+    at 0, every kernel #1 launch held against its plain twin, then timed
+    runs in turns (default gate, gate 0, default gate). Every run must
+    write the same records and reach the reference's accuracy. Returns (the
+    launches of kernel #1 in the timed gate-0 run, the kept launches'
+    largest error). device="cpu" rehearses the phase (no kernel)."""
+    import os
+    import shutil
+    import tempfile
+    from octopus_tpu_torch.core.likelihood import likelihood_array as la
+    from octopus_tpu_torch.core.likelihood import pairhmm_batch as pb
+    from octopus_tpu_torch.utils import synthetic
+
+    phase = f"{kind}_cli"
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{kind}_")
+    try:
+        t0 = time.perf_counter()
+        seed = MULTI[kind]["seed"]
+        if kind == "population":
+            fa, bams, truth, _ = synthetic.simulate_population(
+                tmp, kb=kb, depth=MULTI_DEPTH, seed=seed, n_samples=3)
+            sites = {"truth_sites": len(truth)}
+        else:
+            fa, bams, germline, denovo, _ = synthetic.simulate_trio(
+                tmp, kb=kb, depth=MULTI_DEPTH, seed=seed)
+            truth = (germline, denovo)
+            sites = {"germline": len(germline), "denovo": len(denovo)}
+        emit({"phase": f"{phase}_input", "region_kb": kb,
+              "depth": MULTI_DEPTH, "seed": seed, "samples": len(bams),
+              **sites, "bam_bytes": sum(os.path.getsize(b) for b in bams),
+              "simulate_and_write_s": time.perf_counter() - t0})
+        argv = ["-R", fa, "-I", *bams, *MULTI[kind]["argv"]]
+
+        def run(label, timed):
+            lines, row = run_caller_cli(tmp, phase, label, argv,
+                                        MULTI_GATES[label], device, timed)
+            acc = multi_accuracy(kind, lines, truth)
+            row.update({"region_kb": kb, "wall_s_per_kb": row["wall_s"] / kb,
+                        **acc})
+            emit(row)
+            short = {k: (acc[k], bar) for k, bar in MULTI_BARS[kind].items()
+                     if acc[k] != bar}
+            if short:
+                raise AssertionError(f"{phase} {label}: accuracy (got, the "
+                                     f"reference's) {short}")
+            return lines, row
+
+        kept = []
+        with kept_launches(pb, kept, "pairhmm", la):
+            checked, _ = run("gate0", timed=False)
+        err = (check_launches(pb, kept, f"{phase}_launches")
+               if device == "cuda" else 0)
+        runs = [checked]
+        launches = None
+        for label in ("default_gate", "gate0", "default_gate"):
+            lines, row = run(label, timed=True)
+            runs.append(lines)
+            if label == "gate0":
+                launches = row["launches"]["pairhmm"]
+        if any(lines != checked for lines in runs):
+            raise AssertionError(f"{phase} runs wrote different records")
+        return launches, err
     finally:
         for k in CLI_ENV_KEYS:
             os.environ.pop(k, None)
@@ -1345,6 +1504,10 @@ def main() -> int:
     for kind in ("polyclone", "cell"):
         with timed(f"{kind}_cli"):
             phase_vb_sample_cli(kind)
+    multi = {}
+    for kind in MULTI:
+        with timed(f"{kind}_cli"):
+            multi[kind] = phase_multi_cli(kind)
     # host-clock seconds of each phase, to keep the script inside its limit
     emit({"phase": "phase_seconds", **seconds})
     print(card_line(), flush=True)
@@ -1352,11 +1515,12 @@ def main() -> int:
                "pairhmm_lanes": "octopus_tpu_torch/csrc/pairhmm_lanes.cu",
                "pairhmm_cost": "octopus_tpu_torch/csrc/pairhmm_cost.cu"}
     kept_errs = {"pairhmm": [main_path_err, cli_errs["pairhmm"],
-                             cancer_errs["pairhmm"]],
+                             cancer_errs["pairhmm"],
+                             *(err for _, err in multi.values())],
                  "pairhmm_lanes": [cli_errs["pairhmm_lanes"]],
                  "pairhmm_cost": []}
     launches = {k: cli_launches.get(k, 0) for k in KERNELS}
-    launches["pairhmm"] += cancer_launches
+    launches["pairhmm"] += cancer_launches + sum(n for n, _ in multi.values())
     table = []
     for kernel in KERNELS:
         rows = kernel_rows[kernel]
@@ -1366,14 +1530,15 @@ def main() -> int:
             "route": "cuda",
             "source": sources[kernel],
             "replaces": REPLACES[kernel],
-            # the gate-0 runs of the individual and cancer CLI paths
-            # through this kernel; the cost kernel is on no path (as
-            # Pallas v2 is in the reference)
+            # the gate-0 runs of the individual, cancer, population and
+            # trio CLI paths through this kernel; the cost kernel is on no
+            # path (as Pallas v2 is in the reference)
             "launches": launches[kernel],
-            "launches_by_path": {"cli": cli_launches.get(kernel, 0),
-                                 "cancer_cli": (cancer_launches
-                                                if kernel == "pairhmm"
-                                                else 0)},
+            "launches_by_path": {
+                "cli": cli_launches.get(kernel, 0),
+                "cancer_cli": cancer_launches if kernel == "pairhmm" else 0,
+                **{f"{k}_cli": n if kernel == "pairhmm" else 0
+                   for k, (n, _) in multi.items()}},
             "max_abs_err": max(kept_errs[kernel]
                                + [r["max_abs_err"] for r in rows]),
             "ms": bench["wrapper_ms"],

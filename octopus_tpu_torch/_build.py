@@ -1,11 +1,13 @@
 """Builds the port's compiled code at first use and loads it.
 
-Two libraries, both built from the sources in ``csrc/`` into
+Three kinds, all built from the sources in ``csrc/`` into
 ``build/torch_kernels/`` beside the package (a directory git ignores):
 
 * the host C++ extension (``csrc/octopus_native.cpp``, built with g++ and
   loaded as the module ``octopus_tpu_torch._native``): tandem scans, error
   model tables, CIGAR scanning, assembly and the banded flank DP;
+* the VB engines' host arithmetic (``csrc/vb_host.cpp``, g++, a plain C
+  interface loaded with ctypes by ``core/models/vb_math.py``);
 * the CUDA kernels (``csrc/*.cu``, built with nvcc into a shared library
   with a plain C interface, loaded with ctypes).
 

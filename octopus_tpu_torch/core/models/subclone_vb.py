@@ -10,7 +10,8 @@ multi-seed restarts combined by evidence.
 Design: one batched coordinate ascent over (genotype, seed, component,
 read) tensors, G x S x K x N, on the caller's device; the loop over
 iterations runs in Python, so an evaluation is n_iter rounds of elementwise
-ops, a softmax over K and a sum over N. Its arithmetic is vb_math's, which
+ops, a softmax over K and a sum over N (on a card, a CUDA graph of one round
+replayed). Its arithmetic is vb_math's, which
 gives the same bits on the CPU and on a card. Reads are not padded: the
 seeds are drawn at the padded read count the reference package uses (the
 ladder 32 * 4^k) and cut to the real reads, so every seed, and every
@@ -35,12 +36,13 @@ import torch
 
 from ...device import resolve_device
 from .individual import logsumexp
-from .vb_math import fdigamma, flgamma, flog, fsoftmax, fsum
+from .vb_math import fdigamma, fdot, flgamma, flog, fsoftmax, fsum, fsum_xla
 
 # real elements (G*S*K*N) below which an evaluation asked for on a CUDA
 # device runs on the CPU instead: chip_smoke.py's vb_gate_sweep on an H100
-# (K = 3, 2 seeds, 40 iterations) found the card faster from 49,152
-# elements up, at 128 and at 512 reads
+# (K = 3, 2 seeds, 40 iterations, 128 reads) found the card faster from
+# 49,152 elements up (its crossover moves with the host's speed; the gate
+# only routes, the bits are the same on both sides)
 VB_DEVICE_MIN = 49_152
 # elements of one (G-chunk, S, K, N) intermediate; --target-working-memory
 # sets OCTOPUS_TPU_VB_BUDGET_ELEMS
@@ -102,26 +104,54 @@ def vb_subclone(lnl: torch.Tensor, alpha0: torch.Tensor,
     responsibilities (G, S, K, N)), each run as the reference's _vb_single
     (subclone_vb.py:29-67) computes it, in vb_math's arithmetic."""
     lnl4 = lnl[:, None]                                   # (G, 1, K, N)
-    resp = resp_init
-    alpha = alpha0 + fsum(resp_init, -1)                  # (S, K)
-    for _ in range(n_iter):
+
+    def step(alpha):
         resp = fsoftmax(e_ln_weights(alpha)[..., None] + lnl4, dim=-2)
-        alpha = alpha0 + fsum(resp, -1)                   # (G, S, K)
+        return alpha0 + fsum_xla(resp), resp               # (G, S, K)
+
+    resp = resp_init
+    alpha = alpha0 + fsum_xla(resp_init)                  # (S, K)
+    # on a card a round is a few hundred small launches: after two eager
+    # rounds (the first broadcasts (S, K) to (G, S, K)) the rest replay one
+    # captured round, the same kernels on the same shapes, so the same bits
+    eager = min(n_iter, 2) if lnl.is_cuda else n_iter
+    for _ in range(eager):
+        alpha, resp = step(alpha)
+    if eager < n_iter:
+        # captured on a side stream without torch.cuda.graph's synchronize,
+        # gc.collect and empty_cache, which would cost more than the launches
+        alpha = alpha.clone()
+        graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream(lnl.device)
+        side.wait_stream(torch.cuda.current_stream(lnl.device))
+        with torch.cuda.stream(side):
+            graph.capture_begin(capture_error_mode="thread_local")
+            new_alpha, resp = step(alpha)
+            alpha.copy_(new_alpha)
+            graph.capture_end()
+        torch.cuda.current_stream(lnl.device).wait_stream(side)
+        for _ in range(n_iter - eager):
+            graph.replay()
     G, S = lnl.shape[0], resp_init.shape[0]
     resp = resp.expand(G, S, *resp.shape[-2:])
     alpha = alpha.expand(G, S, alpha.shape[-1])
     e_ln_w = e_ln_weights(alpha)
 
-    def total(x):                                         # over (K, N)
-        return fsum(fsum(x, -1), -1)
+    def total(a, b):                      # sum over (K, N) of a * b
+        # XLA:CPU reduces the reference's 32 padded reads with the product
+        # fused into the loop (a multiply-add a step), more in windows of
+        # the product
+        if 0 < a.shape[-1] <= 32:
+            return fdot(a.flatten(-2), b.flatten(-2))
+        return fsum_xla(a * b, 2)
 
-    ll_term = total(resp * lnl4)
-    z_prior = total(resp * e_ln_w[..., None])
-    z_entropy = -total(resp * flog(torch.clamp(resp, min=1e-30)))
+    ll_term = total(resp, lnl4.expand_as(resp))
+    z_prior = total(resp, e_ln_w[..., None].expand_as(resp))
+    z_entropy = -total(resp, flog(torch.clamp(resp, min=1e-30)))
     w_prior = (flgamma(fsum(alpha0, -1)) - fsum(flgamma(alpha0), -1)
-               + fsum((alpha0 - 1) * e_ln_w, -1))
+               + fdot((alpha0 - 1).expand_as(e_ln_w), e_ln_w))
     w_entropy = -(flgamma(fsum(alpha, -1)) - fsum(flgamma(alpha), -1)
-                  + fsum((alpha - 1) * e_ln_w, -1))
+                  + fdot(alpha - 1, e_ln_w))
     elbo = ll_term + z_prior + z_entropy + w_prior + w_entropy
     return elbo, alpha, resp
 

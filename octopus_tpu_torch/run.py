@@ -10,13 +10,12 @@ Orchestration design (octopus.cpp:467-529 and :1226-1342):
   skips completed windows;
 * shards merge into the final sorted VCF (vcf_utils::merge equivalent).
 
-This port runs the individual, cancer (tumour with or without a normal),
-polyclone and cell callers, serially or on a thread pool over windows,
-with inline threshold CSR; its pair-HMM, genotype reductions and VB
-engines run on `--device` (default cuda). What it does not run yet raises
-NotPortedError when asked for (config.options.check_unported and
-_setup_components): the population and trio callers (and so a
-multi-sample run without a caller that takes several samples), the process
+This port runs all six callers: individual, population (the default for
+several samples), trio, cancer (tumour with or without a normal),
+polyclone and cell, serially or on a thread pool over windows, with
+inline threshold CSR; its pair-HMM, genotype reductions and VB engines run
+on `--device` (default cuda). What it does not run yet raises
+NotPortedError when asked for (config.options.check_unported): the process
 pool, the work queue and sharding, the forest and training CSR, --bamout,
 --filter-vcf and CRAM input.
 """
@@ -226,8 +225,8 @@ def parse_region(text: str, reference: ReferenceGenome,
 def _make_caller(kind: str, reference, contig: str, samples: list[str],
                  base_config=None, cli_args=None):
     """Caller selection mirroring the reference's auto resolution
-    (option_collation.cpp:1845-1860); the population and trio callers
-    raise NotPortedError in _setup_components."""
+    (option_collation.cpp:1845-1860): several samples without a caller
+    take the population caller."""
     import dataclasses
 
     def specialise(cls, **extra):
@@ -249,6 +248,25 @@ def _make_caller(kind: str, reference, contig: str, samples: list[str],
     def arg(name, default=None):
         return getattr(cli_args, name, default) if cli_args is not None else default
 
+    if kind in ("auto", "population") and len(samples) > 1:
+        from .core.callers.population import PopulationCaller, PopulationCallerConfig
+        extra = {}
+        if arg("max_genotype_combinations"):
+            extra["max_genotype_combinations"] = arg("max_genotype_combinations")
+        return PopulationCaller(reference, contig,
+                                specialise(PopulationCallerConfig, **extra))
+    if kind == "trio":
+        from .core.callers.trio import TrioCaller, TrioCallerConfig
+        extra = {}
+        if cli_args is not None:
+            extra = dict(
+                min_denovo_posterior_phred=arg("min_denovo_posterior", 3.0),
+                denovo_snv_prior=arg("denovo_snv_prior", 1.3e-8),
+                denovo_indel_prior=arg("denovo_indel_prior", 1e-9),
+            )
+            if arg("max_genotype_combinations"):
+                extra["max_joint_combinations"] = arg("max_genotype_combinations")
+        return TrioCaller(reference, contig, specialise(TrioCallerConfig, **extra))
     if kind == "cancer":
         from .core.callers.cancer import CancerCaller, CancerCallerConfig
         extra = {}
@@ -394,15 +412,20 @@ def _setup_components(args):
             from .errors import MissingSampleError
             raise MissingSampleError(sorted(missing), samples)
         samples = [s for s in samples if s in wanted]
-    caller_kind = (components.caller_kind if components
-                   else getattr(args, "caller", "auto"))
-    if caller_kind in ("population", "trio") or (caller_kind == "auto"
-                                                 and len(samples) > 1):
-        from .errors import NotPortedError
-        raise NotPortedError(
-            f"the {'population' if caller_kind == 'auto' else caller_kind} "
-            f"caller ({len(samples)} samples: {samples})",
-            "Remaining callers and tools", where="_setup_components")
+    # the trio caller is defined over exactly (maternal, paternal, child);
+    # a 4th sample would be silently dropped by the trio ordering otherwise
+    # (the reference validates this at collation, option_collation.cpp)
+    wants_trio = (getattr(args, "caller", "auto") == "trio"
+                  or (getattr(args, "maternal_sample", None)
+                      and getattr(args, "paternal_sample", None)))
+    if wants_trio and len(samples) != 3:
+        from .errors import UserError
+        raise UserError(
+            f"the trio caller needs exactly 3 samples "
+            f"(maternal, paternal, child); got {len(samples)}: {samples}",
+            where="_setup_components",
+            help="restrict with --samples MOM DAD KID, or use "
+                 "--caller population for larger pedigrees")
     one_based = getattr(args, "one_based_indexing", False)
     if args.regions:
         regions = [parse_region(r, reference, one_based) for r in args.regions]
@@ -683,6 +706,11 @@ def _call_window(window, reference, bams, samples, pipe, csr, caller_cache,
                                  getattr(cli_args, "contig_ploidies_file", None))
             caller.config.ploidy = pm.of(window.contig)
         caller_cache[window.contig] = caller
+    if caller_kind == "trio":
+        # reorder the raw (filtering) batches identically: facet/measure
+        # sample indices must align with the trio-ordered genotypes
+        batches_by_sample = _order_trio(batches_by_sample, samples, cli_args)
+        raw_by_sample = _order_trio(raw_by_sample, samples, cli_args)
     with timers.phase("calling"):
         calls = caller.call(window.begin, window.end, batches_by_sample)
     merged = ReadBatch.concatenate([b for b in batches_by_sample if len(b)])
@@ -788,6 +816,25 @@ def _run_data_profile(args, reference, bams, regions, vcf_path) -> None:
                 c[0] += sp
                 c[1] += er
         total.write_csv(args.data_profile)
+
+
+def _order_trio(batches, samples, cli_args):
+    """Reorder per-sample batches to [maternal, paternal, child] from
+    --maternal-sample/--paternal-sample flags or a --pedigree PED file."""
+    maternal = getattr(cli_args, "maternal_sample", None) if cli_args else None
+    paternal = getattr(cli_args, "paternal_sample", None) if cli_args else None
+    ped_path = getattr(cli_args, "pedigree", None) if cli_args else None
+    if (not maternal or not paternal) and ped_path:
+        from .io.pedigree import Pedigree
+        trio = Pedigree.read(ped_path).find_trio(samples)
+        if trio is not None:
+            maternal, paternal = trio.maternal, trio.paternal
+    if maternal in samples and paternal in samples:
+        child = next(s for s in samples if s not in (maternal, paternal))
+        order = [samples.index(maternal), samples.index(paternal),
+                 samples.index(child)]
+        return [batches[i] for i in order]
+    return batches
 
 
 def _make_facet_bundles(calls, window, reference, batches_by_sample,

@@ -239,6 +239,86 @@ def simulate_tumour_normal(tmp, kb=60, depth=60, seed=7, vaf=0.25,
     return fa, bam_n, bam_t, germline, somatic, n
 
 
+def _near(positions, p, tol):
+    return any(abs(p - q) <= tol for q in positions)
+
+
+def simulate_trio(tmp, kb=100, depth=30, seed=5, read_len=150):
+    """Reference + MOM/DAD/KID BAMs + (germline, de novo) position sets.
+
+    Germline variants land on one parent, on one or both of its haplotypes;
+    the child takes the mother's haplotype 0 and the father's haplotype 1,
+    plus up to 10 de novo SNVs. Draws the same random numbers in the same
+    order as bench_e2e_multi.py's bench_trio, so a seed writes the same
+    files. Returns (fasta, [MOM, DAD, KID] BAMs, germline, denovo, length)."""
+    rng = np.random.default_rng(seed)
+    n = kb * 1000
+    seq = random_sequence(rng, n)
+    fa = write_reference(tmp, seq)
+    mom = [list(seq), list(seq)]
+    dad = [list(seq), list(seq)]
+    germline = set()
+    pos = 1500
+    while pos < n - 1500:
+        pos += int(rng.integers(900, 2400))
+        if pos >= n - 1500:
+            break
+        kind = random_variant(rng, seq, pos)
+        carrier = mom if rng.random() < 0.5 else dad
+        members = (0, 1) if rng.random() < 0.3 else (int(rng.random() < 0.5),)
+        apply_variant(carrier, pos, kind, members, seq)
+        germline.add(pos)
+    kid = [list(mom[0]), list(dad[1])]
+    denovo = set()
+    for _ in range(10):
+        pos = int(rng.integers(2000, n - 2000))
+        if _near(germline, pos, 50) or _near(denovo, pos, 50):
+            continue
+        base = seq[pos]
+        kid[int(rng.random() < 0.5)][pos] = "ACGT"[("ACGT".index(base) + 1) % 4]
+        denovo.add(pos)
+    bams = [write_sample_bam(tmp, name, haps, n, depth, read_len, rng)
+            for name, haps in (("MOM", mom), ("DAD", dad), ("KID", kid))]
+    return fa, bams, germline, denovo, n
+
+
+def simulate_population(tmp, kb=100, depth=30, seed=9, n_samples=3,
+                        read_len=150):
+    """Reference + one BAM per sample (S0, S1, ...) + truth {pos: per-sample
+    [hap0, hap1] alt flags}.
+
+    Each site draws an allele frequency from {0.17, 0.33, 0.5, 0.83} and
+    each sample's two haplotypes carry the alt with it, at least one sample
+    carrying it. Draws the same random numbers in the same order as
+    bench_e2e_multi.py's bench_population, so a seed writes the same files.
+    Returns (fasta, BAMs, truth, length)."""
+    rng = np.random.default_rng(seed)
+    n = kb * 1000
+    seq = random_sequence(rng, n)
+    fa = write_reference(tmp, seq)
+    samples = [[list(seq), list(seq)] for _ in range(n_samples)]
+    truth = {}
+    pos = 1500
+    while pos < n - 1500:
+        pos += int(rng.integers(900, 2400))
+        if pos >= n - 1500:
+            break
+        kind = random_variant(rng, seq, pos)
+        af = rng.choice([0.17, 0.33, 0.5, 0.83])
+        gts = [[int(rng.random() < af), int(rng.random() < af)]
+               for _ in range(n_samples)]
+        if not any(any(gt) for gt in gts):
+            gts[int(rng.integers(0, n_samples))][0] = 1
+        for haps, gt in zip(samples, gts):
+            members = tuple(h for h in (0, 1) if gt[h])
+            if members:
+                apply_variant(haps, pos, kind, members, seq)
+        truth[pos] = gts
+    bams = [write_sample_bam(tmp, f"S{i}", haps, n, depth, read_len, rng)
+            for i, haps in enumerate(samples)]
+    return fa, bams, truth, n
+
+
 def _mixture_reads(flats, weights, n_reads, read_len, rng):
     """Reads from flattened haplotypes drawn at the given weights."""
     from ..basics.reads import FLAG_REVERSE

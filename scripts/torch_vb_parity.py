@@ -11,10 +11,10 @@ NORMAL, and records every SubcloneModel.evaluate of each: its genotype log
 evidences (the best seed's float32 ELBO of each genotype). Prints one JSON
 object: evaluations and ELBOs of each side, ELBOs bit-equal between the
 two (evaluations paired in call order, where the genotype counts agree),
-the largest difference in float32 ulps, the record lines that differ,
-how far the port's own ELBOs move when its fixed-order sums are replaced by
-torch's (sum_order_probe, over the first --probe evaluations), and each
-run's seconds.
+the largest difference in float32 ulps, the count of record lines that
+differ and the lines themselves, how far the port's own ELBOs move when its
+sums in XLA:CPU's order are replaced by torch's (sum_order_probe, over the
+first --probe evaluations), and each run's seconds.
 """
 
 from __future__ import annotations
@@ -118,10 +118,11 @@ def main(argv=None) -> int:
         max_ulps = max(max_ulps, int(ulps32(a, b).max(initial=0)))
         max_abs = max(max_abs, float(np.abs(a - b).max(initial=0.0)))
     # how far the summation order alone moves the port's ELBOs: the first
-    # evaluations again, with every fixed-order sum of the subclone VB
-    # replaced by torch's own float32 sum
-    fsum = subclone_vb.fsum
-    subclone_vb.fsum = lambda x, dim, keepdim=False: x.sum(dim, keepdim=keepdim)
+    # evaluations again, with the subclone VB's sums over reads (XLA:CPU's
+    # order) replaced by torch's own float32 sums
+    fsum_xla, fdot = subclone_vb.fsum_xla, subclone_vb.fdot
+    subclone_vb.fsum_xla = lambda x, dims=1: x.sum(tuple(range(-dims, 0)))
+    subclone_vb.fdot = lambda a, b: (a * b).sum(-1)
     probe = {"evaluations": 0, "elbos": 0, "bit_equal": 0, "max_ulps": 0}
     try:
         for (model, a, kw), want in zip(calls[:args.probe], got["port"]):
@@ -133,7 +134,7 @@ def main(argv=None) -> int:
             probe["max_ulps"] = max(probe["max_ulps"],
                                     int(ulps32(gle, want).max(initial=0)))
     finally:
-        subclone_vb.fsum = fsum
+        subclone_vb.fsum_xla, subclone_vb.fdot = fsum_xla, fdot
     ref_lines, port_lines = records(vcf["reference"]), records(vcf["port"])
     differ = [[r, p] for r, p in zip(ref_lines, port_lines) if r != p]
     print(json.dumps({
@@ -143,7 +144,8 @@ def main(argv=None) -> int:
         "elbos_paired": paired, "elbos_bit_equal": equal,
         "max_ulps": max_ulps, "max_abs_diff": max_abs,
         "records": {"reference": len(ref_lines), "port": len(port_lines)},
-        "records_differ": differ, "sum_order_probe": probe,
+        "record_lines_differ": len(differ), "records_differ": differ,
+        "sum_order_probe": probe,
         "seconds": seconds}))
     return 0
 

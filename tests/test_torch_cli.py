@@ -141,8 +141,6 @@ UNPORTED = {
     "shard_index": ["--shard-index", "0", "--num-shards", "2"],
     "process_pool": ["--threads", "4"],
     "training_csr": ["--disable-call-filtering", "--annotations", "AD"],
-    "caller_trio": ["--caller", "trio"],
-    "caller_population": ["--caller", "population"],
 }
 
 
@@ -155,6 +153,39 @@ def test_unported_flag_raises_user_error(sample, flag, capsys):
     assert rc == 2
     assert "not ported" in " ".join(capsys.readouterr().err.split())
     assert not os.path.exists(out)
+
+
+def test_trio_caller_on_one_sample_raises_user_error(sample, capsys):
+    d, fa, bam, _ = sample
+    out = str(d / "trio_one_sample.vcf")
+    rc = cli.main(["-R", fa, "-I", bam, "-o", out, "--device", "cpu",
+                   "--caller", "trio"])
+    assert rc == 2
+    assert "needs exactly 3 samples" in " ".join(
+        capsys.readouterr().err.split())
+    assert not os.path.exists(out)
+
+
+def test_population_caller_on_one_sample_writes_the_reference_records(
+        sample, monkeypatch):
+    """One sample takes the individual caller under --caller population, in
+    the reference as in the port."""
+    d, fa, bam, _ = sample
+    want = str(d / "reference_population.vcf")
+    saved = {k: os.environ.get(k) for k in PINNED}
+    try:
+        assert ref_cli.main(["-R", fa, "-I", bam, "-o", want,
+                             "--caller", "population"]) == 0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out = run_port(sample, monkeypatch, "port_population.vcf",
+                   "--caller", "population")
+    assert split_vcf(out) == split_vcf(want)
+    assert len(split_vcf(out)[1]) > 2
 
 
 def test_cram_input_raises_user_error(sample, capsys):

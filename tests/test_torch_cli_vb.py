@@ -144,15 +144,30 @@ def test_tumour_normal_simulation_matches_the_reference(tmp_path):
     assert got[4], "no somatic SNVs"
 
 
-def test_multi_sample_run_without_a_caller_is_not_ported(samples, capsys):
+def test_multi_sample_run_without_a_caller_writes_the_reference_records(
+        samples, monkeypatch):
+    """Two BAMs and no --caller take the population caller, in the
+    reference as in the port."""
     d, cases = samples
     fa, bams, _, _ = cases["tumour_normal"]
-    out = str(d / "auto.vcf")
+    want = str(d / "reference_auto.vcf")
+    saved = {k: os.environ.get(k) for k in PINNED}
+    try:
+        assert ref_cli.main(["-R", fa, "-I", *bams, "-o", want]) == 0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    for k in PINNED:
+        monkeypatch.delenv(k, raising=False)
+    out = str(d / "port_auto.vcf")
     assert cli.main(["-R", fa, "-I", *bams, "-o", out, "--device",
-                     "cpu"]) == 2
-    err = " ".join(capsys.readouterr().err.split())
-    assert "not ported" in err and "population" in err
-    assert not os.path.exists(out)
+                     "cpu"]) == 0
+    assert split_vcf(out) == split_vcf(want)
+    records = [line.split("\t") for line in split_vcf(out)[1][1:]]
+    assert records and all(len(r) == 11 for r in records)
 
 
 PROBE = r"""

@@ -294,21 +294,27 @@ def test_cli_on_cuda_writes_the_cpu_records(cuda, tmp_path, monkeypatch,
     assert lines["cuda"] == lines["cpu"] and len(lines["cpu"]) > 3
 
 
-@pytest.mark.parametrize("fn", ["fexp", "flog", "flgamma", "fdigamma",
-                                "fsoftmax", "fsum"])
+@pytest.mark.parametrize("fn", ["fexp", "flog", "flog1p", "flgamma",
+                                "fdigamma", "fsoftmax", "fsum", "fsum_xla",
+                                "fdot"])
 def test_vb_math_on_cuda_gives_the_cpu_bits(cuda, fn):
     from octopus_tpu_torch.core.models import vb_math
     rng = np.random.default_rng(3)
     x = rng.standard_normal((64, 3, 517)).astype(np.float32)
     if fn in ("flog", "flgamma", "fdigamma"):
-        x = np.exp(3 * x).astype(np.float32)
+        x = np.exp(3 * x).astype(np.float32)     # 1e-5 to 1e5, below 0.5 too
+    elif fn == "flog1p":
+        x = (np.exp(x) - 0.8).astype(np.float32)
     elif fn == "fexp":
         x = -np.abs(20 * x)
-    args = {"fsoftmax": (1,), "fsum": (-1,)}.get(fn, ())
-    f = getattr(vb_math, fn)
-    host = f(torch.from_numpy(x), *args)
-    card = f(torch.from_numpy(x).to(cuda), *args)
-    assert torch.equal(card.cpu(), host)
+    other = x[::-1].copy()
+
+    def run(device):
+        args = {"fsoftmax": (1,), "fsum": (-1,), "fsum_xla": (2,),
+                "fdot": (torch.from_numpy(other).to(device),)}.get(fn, ())
+        return getattr(vb_math, fn)(torch.from_numpy(x).to(device), *args)
+
+    assert torch.equal(run(cuda).cpu(), run("cpu"))
 
 
 @pytest.mark.parametrize("engine", ["subclone", "mixture_mixture"])
@@ -339,6 +345,26 @@ def test_vb_on_cuda_gives_the_cpu_bits(cuda, monkeypatch, engine):
             (1, 0) if device == "cuda" else (0, 1))
     for got, want in zip(out["cuda"], out["cpu"]):
         assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("n_iter", [1, 2, 3])
+def test_vb_subclone_graph_rounds_give_the_cpu_bits(cuda, n_iter):
+    """On a card the rounds after the second replay one captured round
+    (test_vb_on_cuda_gives_the_cpu_bits runs 50); with none, and with the
+    first replayed, the result is the CPU's, bit for bit."""
+    from octopus_tpu_torch.core.models import subclone_vb as vb
+    rng = np.random.default_rng(n_iter)
+    lnl = -rng.exponential(2.0, (50, 3, 70)).astype(np.float32)
+    alpha0 = np.asarray([1.5, 1.5, 0.05], np.float32)
+    seeds = vb.subclone_seeds(3, 70, 2)
+    out = {}
+    for device in ("cpu", cuda):
+        out[device] = [t.cpu() for t in vb.vb_subclone(
+            torch.from_numpy(lnl).to(device),
+            torch.from_numpy(alpha0).to(device),
+            torch.from_numpy(seeds.copy()).to(device), n_iter=n_iter)]
+    for got, want in zip(out[cuda], out["cpu"]):
+        assert torch.equal(got, want)
 
 
 def test_cancer_cli_on_cuda_writes_the_cpu_records(cuda, tmp_path,

@@ -3,13 +3,15 @@
 The reference package's VB evidences come from jnp.exp, jnp.log,
 jax.scipy.special.gammaln and digamma on XLA:CPU; the port's from
 octopus_tpu_torch/core/models/vb_math.py, which builds them from IEEE-exact
-ops so that the CPU and the card agree bit for bit. Over a seeded float32
-sweep of the domain the engines use, each function's share of values
-bit-equal to XLA's and its largest distance in float32 ulps are held at
-what they were measured to be (PERF.md, Findings): a change to
-vb_math that moves a function away from XLA's bits fails here.
+ops, in the forms XLA:CPU compiles, so that the CPU and the card agree bit
+for bit and both with the reference. Over a seeded float32 sweep of the
+domain the engines use (concentrations down to 0.01, where lgamma and
+digamma reflect through sin and cos), every value must equal XLA's bit
+for bit (PERF.md, Findings): a change to vb_math that moves a function
+away from XLA's bits fails here. So does fsum_xla's order against
+jnp.sum's over the long read axis, and over (K, reads).
 
-    JAX_PLATFORMS=cpu python tests/test_torch_vb_math.py   # prints the table
+    JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_vb_math.py   # the table
 """
 
 import json
@@ -36,14 +38,18 @@ def log_uniform(rng, lo, hi, n):
 
 
 # name -> (port, XLA:CPU, sweep): the softmax's exp arguments (x - max, down
-# to the -86 cut), responsibilities and Lanczos terms for log, Dirichlet
-# concentrations and their sums for lgamma and digamma (below 0.5 XLA
-# reflects through sin and cos, which vb_math leaves out)
+# to where exp flushes to 0), responsibilities and Lanczos terms for log,
+# log1p's arguments z / 7.5, Dirichlet concentrations and their sums for
+# lgamma and digamma (below 0.5 both reflect through sin and cos)
 SWEEPS = {
     "fexp": (vb_math.fexp, jnp.exp,
              lambda rng: np.concatenate([
-                 rng.uniform(-86.0, 0.0, 100_000),
+                 rng.uniform(-88.0, 0.0, 100_000),
                  -log_uniform(rng, 1e-8, 1.0, 100_000)]).astype(np.float32)),
+    "flog1p": (vb_math.flog1p, jnp.log1p,
+               lambda rng: np.concatenate([
+                   rng.uniform(-0.2, 0.5, 100_000),
+                   log_uniform(rng, 1e-6, 2e3, 100_000)]).astype(np.float32)),
     "flog": (vb_math.flog, jnp.log,
              lambda rng: log_uniform(rng, 1e-30, 1e4, 200_000)),
     "flgamma": (vb_math.flgamma, gammaln,
@@ -51,20 +57,10 @@ SWEEPS = {
     "fdigamma": (vb_math.fdigamma, digamma,
                  lambda rng: log_uniform(rng, 0.5, 1e4, 200_000)),
     "fdigamma_below_half": (vb_math.fdigamma, digamma,
-                            lambda rng: log_uniform(rng, 0.05, 0.5, 50_000)),
+                            lambda rng: log_uniform(rng, 0.01, 0.5, 50_000)),
+    "flgamma_below_half": (vb_math.flgamma, gammaln,
+                           lambda rng: log_uniform(rng, 0.01, 0.5, 50_000)),
 }
-
-# measured on this sweep (seed 0): (least share bit-equal, most ulps).
-# The worst ulps of flgamma and fdigamma sit next to their zeros (1 and 2;
-# 1.4616), where a small absolute difference is many ulps of a value near 0
-HELD = {
-    "fexp": (0.97, 1),
-    "flog": (0.98, 3),
-    "flgamma": (0.45, 524288),
-    "fdigamma": (0.39, 131072),
-    "fdigamma_below_half": (0.30, 14),
-}
-
 
 def measure(name, seed=0):
     port, xla, sweep = SWEEPS[name]
@@ -80,9 +76,74 @@ def measure(name, seed=0):
 @pytest.mark.parametrize("name", sorted(SWEEPS))
 def test_vb_math_against_xla_cpu(name):
     row = measure(name)
-    share, most = HELD[name]
-    assert row["bit_equal"] >= share, row
-    assert row["max_ulps"] <= most, row
+    assert row["bit_equal"] == 1.0 and row["max_ulps"] == 0, row
+
+
+def crafted(rng, shape):
+    """float32 values over ten decades of both signs, where the order of
+    the additions shows in the last bits."""
+    return (rng.standard_normal(shape)
+            * np.exp(rng.uniform(-5, 5, shape))).astype(np.float32)
+
+
+@pytest.mark.parametrize("n", [24, 32, 100, 128, 500, 2048, 8000])
+def test_fsum_xla_adds_in_xla_cpu_order(n):
+    """jnp.sum over the reference's reads, padded with zeros to its rung
+    Np = 32 * 4^k, and over (K, reads), as XLA:CPU adds them: windows of 32
+    one element after another (K-major within a window), then the window
+    sums; fsum_xla over the n real reads gives the same bits, the pairwise
+    order does not."""
+    rng = np.random.default_rng(n)
+    x = crafted(rng, (6, 3, n))
+    rung = 32
+    while rung < n:
+        rung *= 4
+    padded = jnp.asarray(np.concatenate(
+        [x, np.zeros((6, 3, rung - n), np.float32)], -1))
+    for fsum_xla in (vb_math.fsum_xla, vb_math.fsum_xla_ops):
+        got = fsum_xla(torch.from_numpy(x))
+        assert np.array_equal(got.numpy(), np.asarray(jnp.sum(padded, -1)))
+        got2 = fsum_xla(torch.from_numpy(x), 2)
+        assert np.array_equal(got2.numpy(),
+                              np.asarray(jnp.sum(padded, (-2, -1))))
+    if n > 32:
+        pairwise = vb_math.fsum(torch.from_numpy(x), -1).numpy()
+        assert not np.array_equal(pairwise, np.asarray(jnp.sum(padded, -1)))
+
+
+def every_float32(stride):
+    """Every stride-th float32 bit pattern, NaNs left out."""
+    x = (np.arange(0, 2 ** 32, stride, dtype=np.uint64).astype(np.uint32)
+         .view(np.float32))
+    return x[~np.isnan(x)]
+
+
+@pytest.mark.parametrize("name", ["fexp", "flog", "fsum_xla"])
+def test_host_forms_give_the_torch_forms_bits(name):
+    """On the CPU exp, log and fsum_xla run in csrc/vb_host.cpp; the torch
+    forms (fexp_ops, flog_ops, fsum_xla_ops) are what a card runs. Over
+    float32 bit patterns across the whole range (flushes, clamps and the
+    log's floor included) and over sums of every shape the engines take,
+    both give the same bits."""
+    assert vb_math._host_library() is not None, "csrc/vb_host.cpp did not build"
+    host, ops = getattr(vb_math, name), getattr(vb_math, name + "_ops")
+    rng = np.random.default_rng(7)
+    if name == "fsum_xla":
+        cases = [(crafted(rng, (5, 3, n)), dims, window)
+                 for n in (1, 31, 32, 33, 100, 1025, 33_000)
+                 for dims in (1, 2) for window in (32, 8)]
+        for x, dims, window in cases:
+            x[x > 2] = -0.0
+            got = host(torch.from_numpy(x), dims, window)
+            want = ops(torch.from_numpy(x), dims, window)
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        return
+    x = every_float32(997)
+    if name == "flog":
+        x = x[np.isfinite(x)]
+    x = torch.from_numpy(np.concatenate([x, rng.uniform(
+        -100, 100, 1_000_000).astype(np.float32)]))
+    assert torch.equal(host(x).view(torch.int32), ops(x).view(torch.int32))
 
 
 if __name__ == "__main__":

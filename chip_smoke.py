@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Nine phases, each printing JSON lines:
+Thirteen phases, each printing JSON lines:
 
 1. build: g++ builds the host extension and nvcc builds the three CUDA
    kernels (csrc/pairhmm.cu, pairhmm_lanes.cu, pairhmm_cost.cu), all from
@@ -79,6 +79,26 @@ Nine phases, each printing JSON lines:
    gate. Every run must write the same records, each gate-0 run must
    launch kernel #1 from both sources, and the accuracy must equal the
    reference CLI's on the same BAMs (MULTI_BARS).
+
+10. pool_cli: the cli phase's BAM through the CLI serially, on the process
+   pool (--threads W, W = min(8, cores); CPU-only workers, the parent keeps
+   the card) and on the thread pool (--thread-workers), default gates, in
+   turns (serial, processes, threads, and back); every run must write the
+   serial card run's records, and no pool may fall back to threads;
+11. pool_cli_deferred: the process pool with every window of a variant
+   handed back to the parent (OCTOPUS_TPU_DEFER_HEAVY_AT=1) and the
+   parent's host-DP gate at 0: the parent must launch kernel #1, each
+   launch held against the plain twin, and write the same records;
+12. shard_cli: two OS processes share the run through --work-queue
+   --num-shards 2 on the card (gate 0); each must launch kernel #1, and the
+   last to finish merges a VCF byte-identical to the serial card run's;
+13. sharded_kernels: parallel.sharded_pairhmm_scores over [cuda:0, cuda:0]
+   and over every visible card, at the bench shape and at B = 4,099,
+   bit-equal to the unsharded kernel and its plain twin, one launch a
+   shard; sharded_genotype_step within (rtol 2e-4, atol 2e-3) of the
+   unsharded torch reduction.
+
+Phases 10-13 run after the cli phase, in the order above.
 
 Then it prints the card's name and power limit, the kernel table, and as
 its last line {"ok": true, "device": {...}}. Any failure raises, and the
@@ -823,7 +843,8 @@ def phase_main_path(device="cuda", kb=REGION_KB):
 # ---------------------------------------------------------------------------
 
 CLI_ENV_KEYS = ("OCTOPUS_TPU_HOST_HMM_MAX", "OCTOPUS_TPU_UNROLLED_HMM",
-                "OCTOPUS_TPU_HOST_LATENTS", "OCTOPUS_TPU_VB_DEVICE_MIN")
+                "OCTOPUS_TPU_HOST_LATENTS", "OCTOPUS_TPU_VB_DEVICE_MIN",
+                "OCTOPUS_TPU_DEFER_HEAVY_AT")
 # label -> (environment, the kernel its gate-0 job sets must launch)
 CLI_RUNS = {
     "default_gate": ({}, None),
@@ -833,11 +854,14 @@ CLI_RUNS = {
 }
 
 
-def phase_cli(device="cuda", kb=CLI_REGION_KB):
+def phase_cli(device="cuda", kb=CLI_REGION_KB, tmp=None):
     """The port CLI on a simulated BAM: untimed checked runs at gate 0 for
     each kernel, then timed runs in turns. Returns (launches of each kernel
-    in its timed gate-0 run, max_abs_err of each kernel's kept launches).
-    device="cpu" rehearses the phase with the plain twins."""
+    in its timed gate-0 run, max_abs_err of each kernel's kept launches,
+    the input: fa, bam, truth, kb and `serial`, the output of the timed
+    default-gate run). The files go to `tmp`, which the caller then owns,
+    else to a directory removed on return. device="cpu" rehearses the
+    phase with the plain twins."""
     import os
     import shutil
     import tempfile
@@ -850,7 +874,8 @@ def phase_cli(device="cuda", kb=CLI_REGION_KB):
     from octopus_tpu_torch.utils import timers
     from octopus_tpu_torch.utils.synthetic import simulate_diploid
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    owned = tmp is None
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_") if owned else tmp
     try:
         t0 = time.perf_counter()
         fa, bam, truth, n = simulate_diploid(
@@ -950,11 +975,14 @@ def phase_cli(device="cuda", kb=CLI_REGION_KB):
                 launches[kernel] = row["launches"][kernel]
         if any(lines != runs[0] for lines in runs):
             raise AssertionError("cli runs wrote different records")
-        return launches, errs
+        return launches, errs, {
+            "fa": fa, "bam": bam, "truth": truth, "kb": kb,
+            "serial": os.path.join(tmp, "default_gate_timed.vcf")}
     finally:
         for k in CLI_ENV_KEYS:
             os.environ.pop(k, None)
-        shutil.rmtree(tmp, ignore_errors=True)
+        if owned:
+            shutil.rmtree(tmp, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1469,6 +1497,217 @@ def phase_multi_cli(kind, device="cuda", kb=MULTI_KB):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phases 10-13: the process pool, shards and sharding
+# ---------------------------------------------------------------------------
+
+def pool_workers() -> int:
+    import os
+    return min(8, os.cpu_count() or 1)
+
+
+# label -> CLI arguments past the input
+POOL_MODES = {
+    "serial": [],
+    "processes": ["--threads", "{W}"],
+    "threads": ["--threads", "{W}", "--thread-workers"],
+}
+
+
+def _pool_row(row):
+    from octopus_tpu_torch import run
+    row.update({"pool": dataclasses.asdict(run.POOL)})
+    return row
+
+
+def phase_pool_cli(inputs, tmp, device="cuda"):
+    """The cli phase's BAM through the CLI serially, on the process pool
+    and on the thread pool, W = min(8, cores) workers, default gates, in
+    turns. Every run must write the serial card run's records;
+    no pool may fall back. Returns the parent's kernel #1 launches."""
+    import os
+    from octopus_tpu_torch import run
+    W = pool_workers()
+    with open(inputs["serial"]) as fh:
+        want = [line.rstrip("\n") for line in fh if not line.startswith("#")]
+    argv = ["-R", inputs["fa"], "-I", inputs["bam"]]
+    walls = collections.defaultdict(list)
+    launches = 0
+    for label in ("serial", "processes", "threads", "threads", "processes",
+                  "serial"):
+        run.POOL.reset()
+        lines, row = run_caller_cli(
+            tmp, "pool_cli", label,
+            argv + [a.format(W=W) for a in POOL_MODES[label]], {}, device,
+            True)
+        row.update({"workers": W, "cpu_count": os.cpu_count(),
+                    "region_kb": inputs["kb"], "records": len(lines)})
+        emit(_pool_row(row))
+        walls[label].append(row["wall_s"])
+        if label == "processes":
+            launches += row["launches"]["pairhmm"]
+        if lines != want:
+            raise AssertionError(f"pool_cli {label}: records differ from "
+                                 "the serial card run")
+        if label == "processes" and (run.POOL.fallbacks
+                                     or not run.POOL.worker_windows):
+            raise AssertionError(f"pool_cli {label}: {run.POOL}")
+    emit({"phase": "pool_cli_walls", "workers": W, "cpu_count": os.cpu_count(),
+          "wall_s": dict(walls),
+          "median_s": {k: statistics.median(v) for k, v in walls.items()}})
+    return launches
+
+
+def phase_pool_cli_deferred(inputs, tmp, device="cuda"):
+    """The process pool with every window of a variant handed back
+    (OCTOPUS_TPU_DEFER_HEAVY_AT=1) and the parent's host-DP gate at 0: the
+    parent runs the deferred windows through kernel #1, every launch held
+    against the plain twin. Returns (the parent's #1 launches, the kept
+    launches' largest error)."""
+    import os
+    from octopus_tpu_torch import run
+    from octopus_tpu_torch.core.likelihood import likelihood_array as la
+    from octopus_tpu_torch.core.likelihood import pairhmm_batch as pb
+    W = pool_workers()
+    with open(inputs["serial"]) as fh:
+        want = [line.rstrip("\n") for line in fh if not line.startswith("#")]
+    run.POOL.reset()
+    kept = []
+    with kept_launches(pb, kept, "pairhmm", la):
+        lines, row = run_caller_cli(
+            tmp, "pool_cli_deferred", "deferred",
+            ["-R", inputs["fa"], "-I", inputs["bam"], "--threads", str(W)],
+            {"OCTOPUS_TPU_DEFER_HEAVY_AT": "1", "OCTOPUS_TPU_HOST_HMM_MAX": "0"},
+            device, True)
+    row.update({"workers": W, "cpu_count": os.cpu_count(),
+                "records": len(lines)})
+    emit(_pool_row(row))
+    launches = row["launches"]["pairhmm"]
+    err = (check_launches(pb, kept, "pool_cli_deferred_launches")
+           if device == "cuda" else 0)
+    if lines != want:
+        raise AssertionError("pool_cli_deferred: records differ from the "
+                             "serial card run")
+    if (not run.POOL.deferred_windows or run.POOL.fallbacks
+            or (device == "cuda" and not launches)):
+        raise AssertionError(f"pool_cli_deferred: {run.POOL}, parent #1 "
+                             f"launches {launches}")
+    return launches, err
+
+
+SHARD_PROBE = r"""
+import json, sys
+from octopus_tpu_torch import cli
+from octopus_tpu_torch.core.likelihood import pairhmm_batch as pb
+rc = cli.main(sys.argv[1:])
+print(json.dumps({"rc": rc, "launches": {k: c.launches
+                                         for k, c in pb.KERNEL_COUNTS.items()}}))
+"""
+
+
+def phase_shard_cli(inputs, tmp, device="cuda"):
+    """Two OS processes share the cli phase's BAM through --work-queue
+    --num-shards 2 on one card, host-DP gate 0: the last to finish merges,
+    and the merged VCF must equal the serial card run's byte for byte; each
+    process must launch kernel #1. Returns the two processes' #1 launches."""
+    import os
+    out = os.path.join(tmp, "shard_cli.vcf")
+    env = {k: v for k, v in os.environ.items() if k not in CLI_ENV_KEYS}
+    # two processes on the host's cores: half of them each
+    env.update(OCTOPUS_TPU_HOST_HMM_MAX="0",
+               OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 2) // 2)))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", SHARD_PROBE, "-R", inputs["fa"], "-I",
+         inputs["bam"], "-o", out, "--device", device, "--work-queue",
+         "--num-shards", "2", "--shard-index", str(i)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i in range(2)]
+    results = []
+    for p in procs:
+        stdout, stderr = p.communicate(timeout=600)
+        if p.returncode != 0:
+            raise AssertionError(f"shard_cli: exit {p.returncode}: "
+                                 f"{stderr[-2000:]}")
+        results.append(json.loads(stdout.strip().splitlines()[-1]))
+    wall = time.perf_counter() - t0
+    with open(out, "rb") as a, open(inputs["serial"], "rb") as b:
+        same = a.read() == b.read()
+    launches = [r["launches"]["pairhmm"] for r in results]
+    emit({"phase": "shard_cli", "device": device, "processes": 2,
+          "wall_s": wall, "launches": [r["launches"] for r in results],
+          "byte_identical": same})
+    if not same:
+        raise AssertionError("shard_cli: the merged VCF differs from the "
+                             "serial card run")
+    if device == "cuda" and not all(launches):
+        raise AssertionError(f"shard_cli: #1 launches per process {launches}")
+    return sum(launches)
+
+
+def phase_sharded_kernels(device="cuda"):
+    """sharded_pairhmm_scores over [cuda:0, cuda:0] and over every visible
+    card, at the bench shape and at a ragged B: bit-equal to the unsharded
+    kernel and its plain twin, one launch a shard; sharded_genotype_step
+    within the CPU tests' tolerance of the unsharded torch reduction."""
+    import torch
+    from octopus_tpu_torch.core.likelihood import pairhmm_batch as pb
+    from octopus_tpu_torch.core.models import genotype_likelihoods as gl
+    from octopus_tpu_torch.parallel import (make_mesh, sharded_genotype_step,
+                                            sharded_pairhmm_scores)
+    meshes = {"cuda0_x2": [torch.device(device, 0)] * 2,
+              "visible": (make_mesh() if device == "cuda"
+                          else [torch.device("cpu")])}
+    rng = np.random.default_rng(SEED)
+    rows = []
+    for B in SHARD_BATCHES:
+        args = random_batch(rng, B, READ_LEN, 8)
+        on_card = [torch.from_numpy(a).to(device) for a in args]
+        whole = pb.pairhmm_scores_cuda(*on_card, pad=8) if device == "cuda" \
+            else pb.pairhmm_scores_plain(*on_card, pad=8)
+        plain = pb.pairhmm_scores_plain(*on_card, pad=8)
+        for name, devices in meshes.items():
+            pb.COUNTS.reset()
+            t0 = time.perf_counter()
+            got = sharded_pairhmm_scores(devices, *args, pad=8)
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = pb.COUNTS.launches
+            err = max(int((got.long() - whole.cpu().long()).abs().max()),
+                      int((got.long() - plain.cpu().long()).abs().max()))
+            rows.append({"B": B, "devices": name, "shards": len(devices),
+                         "launches": launches, "call_ms_host_clock": ms,
+                         "max_abs_err": err})
+            if err or (device == "cuda" and launches != len(devices)):
+                raise AssertionError(f"sharded_kernels: {rows[-1]}")
+    gl_rows = []
+    for ploidy, H, R in ((2, 12, 512), (2, 64, 4_099), (3, 8, 1_024)):
+        from octopus_tpu_torch.core.types.genotypes import (
+            generate_all_genotypes, genotype_counts_matrix)
+        lnL = -rng.exponential(3.0, (H, R))
+        gts = generate_all_genotypes(H, ploidy)
+        counts = genotype_counts_matrix(gts, H).astype(np.float32)
+        want = gl.genotype_log_likelihoods_torch(
+            torch.as_tensor(lnL, dtype=torch.float32, device=device),
+            torch.as_tensor(counts, device=device), ploidy).cpu().numpy()
+        for name, devices in meshes.items():
+            got = sharded_genotype_step(devices, lnL, counts, ploidy).numpy()
+            close = np.allclose(got, want, rtol=SHARD_RTOL, atol=SHARD_ATOL)
+            gl_rows.append({"ploidy": ploidy, "H": H, "R": R,
+                            "G": len(gts), "devices": name,
+                            "max_abs_diff": float(np.abs(got - want).max()),
+                            "close": bool(close)})
+            if not close:
+                raise AssertionError(f"sharded_kernels: {gl_rows[-1]}")
+    emit({"phase": "sharded_kernels", "pairhmm": rows, "genotype": gl_rows,
+          "rtol": SHARD_RTOL, "atol": SHARD_ATOL})
+
+
+# the bench shape's batch and a ragged one; the sharded genotype
+# reduction's tolerance, as tests/test_torch_sharding.py
+SHARD_BATCHES = (65_536, 4_099)
+SHARD_RTOL, SHARD_ATOL = 2e-4, 2e-3
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1495,8 +1734,23 @@ def main() -> int:
         main_path_launches, main_path_err = phase_main_path()
     emit({"phase": "main_path_kernel_launches",
           "pairhmm": main_path_launches})
-    with timed("cli"):
-        cli_launches, cli_errs = phase_cli()
+    import shutil
+    import tempfile
+    cli_tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        with timed("cli"):
+            cli_launches, cli_errs, cli_input = phase_cli(tmp=cli_tmp)
+        with timed("pool_cli"):
+            pool_launches = phase_pool_cli(cli_input, cli_tmp)
+        with timed("pool_cli_deferred"):
+            deferred_launches, deferred_err = phase_pool_cli_deferred(
+                cli_input, cli_tmp)
+        with timed("shard_cli"):
+            shard_launches = phase_shard_cli(cli_input, cli_tmp)
+    finally:
+        shutil.rmtree(cli_tmp, ignore_errors=True)
+    with timed("sharded_kernels"):
+        phase_sharded_kernels()
     with timed("vb_gate_sweep"):
         phase_vb_gate_sweep()
     with timed("cancer_cli"):
@@ -1515,12 +1769,18 @@ def main() -> int:
                "pairhmm_lanes": "octopus_tpu_torch/csrc/pairhmm_lanes.cu",
                "pairhmm_cost": "octopus_tpu_torch/csrc/pairhmm_cost.cu"}
     kept_errs = {"pairhmm": [main_path_err, cli_errs["pairhmm"],
-                             cancer_errs["pairhmm"],
+                             deferred_err, cancer_errs["pairhmm"],
                              *(err for _, err in multi.values())],
                  "pairhmm_lanes": [cli_errs["pairhmm_lanes"]],
                  "pairhmm_cost": []}
+    # kernel #1 from the pool's parent (every pool_cli run and the deferred
+    # run) and from the two shard_cli processes
+    pool_paths = {"pool_cli": pool_launches,
+                  "pool_cli_deferred": deferred_launches,
+                  "shard_cli": shard_launches}
     launches = {k: cli_launches.get(k, 0) for k in KERNELS}
-    launches["pairhmm"] += cancer_launches + sum(n for n, _ in multi.values())
+    launches["pairhmm"] += (cancer_launches + sum(n for n, _ in multi.values())
+                            + sum(pool_paths.values()))
     table = []
     for kernel in KERNELS:
         rows = kernel_rows[kernel]
@@ -1536,6 +1796,8 @@ def main() -> int:
             "launches": launches[kernel],
             "launches_by_path": {
                 "cli": cli_launches.get(kernel, 0),
+                **{k: n if kernel == "pairhmm" else 0
+                   for k, n in pool_paths.items()},
                 "cancer_cli": cancer_launches if kernel == "pairhmm" else 0,
                 **{f"{k}_cli": n if kernel == "pairhmm" else 0
                    for k, (n, _) in multi.items()}},

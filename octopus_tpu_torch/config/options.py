@@ -363,38 +363,22 @@ UNPORTED = {
                      "Remaining callers and tools"),
     "somatic_forest_model": ("--somatic-forest-model (random-forest CSR)",
                              "Remaining callers and tools"),
-    "work_queue": ("--work-queue", "Multi-device, work queue and the process "
-                                   "pool"),
-    "shard_index": ("--shard-index", "Multi-device, work queue and the "
-                                     "process pool"),
-    "num_shards": ("--num-shards", "Multi-device, work queue and the process "
-                                   "pool"),
 }
 
 
 def check_unported(args) -> None:
     """Raise NotPortedError for any option asking for a feature this port
-    does not run yet: those in UNPORTED, the process pool (--threads N
-    without --thread-workers), training CSR (--disable-call-filtering with
-    --annotations), and the reference's multi-host environment."""
+    does not run yet: those in UNPORTED, and training CSR
+    (--disable-call-filtering with --annotations)."""
     from ..errors import NotPortedError
     for k, (what, item) in UNPORTED.items():
         if getattr(args, k, None) not in (None, False):
             raise NotPortedError(what, item)
-    pool = "Multi-device, work queue and the process pool"
-    if (int(getattr(args, "threads", 0) or 0) > 1
-            and not getattr(args, "thread_workers", False)):
-        raise NotPortedError(
-            "--threads without --thread-workers (the process pool); pass "
-            "--thread-workers for the thread pool", pool)
     if getattr(args, "disable_call_filtering", False) and getattr(
             args, "annotations", None):
         raise NotPortedError(
             "--disable-call-filtering with --annotations (training CSR)",
             "Remaining callers and tools")
-    for var in ("OCTOPUS_TPU_COORDINATOR", "OCTOPUS_TPU_DISTRIBUTED"):
-        if os.environ.get(var):
-            raise NotPortedError(f"the multi-host run ({var})", pool)
 
 
 def parse_args_with_config(argv=None):
@@ -598,6 +582,8 @@ def collate(args) -> CollatedComponents:
         use_filtered_source_candidates=args.use_filtered_source_candidates,
         target_working_memory=args.target_working_memory,
         device=args.device,
+        # set only in a process-pool worker's arguments (run.py)
+        defer_heavy=getattr(args, "defer_heavy", 0),
     )
     return CollatedComponents(
         read_pipe=rp,

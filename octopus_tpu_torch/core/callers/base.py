@@ -13,26 +13,16 @@ from __future__ import annotations
 import dataclasses
 import logging
 import math
-import os
 from dataclasses import dataclass, field
 
 import numpy as np
 
 from ..._build import require_native
 from ...device import resolve_device
+from ...errors import HeavyWindowDeferred
 from ...logging_.progress import TRACE
 
 _log = logging.getLogger("octopus_tpu_torch")
-
-
-class HeavyWindowDeferred(Exception):
-    """A CPU worker declines a dense window so the TPU parent runs it
-    (raised only when OCTOPUS_TPU_DEFER_HEAVY is set in the worker env)."""
-
-    def __init__(self, begin: int, end: int):
-        super().__init__(f"heavy window {begin}-{end} deferred to parent")
-        self.begin = begin
-        self.end = end
 
 from ...basics.phred import LN10_DIV_10
 from ...utils import timers
@@ -112,6 +102,10 @@ class BaseCallerConfig:
     # here, not there. use_device=False keeps genotype reductions on the
     # host whatever their size.
     device: str = "cuda"
+    # a CPU-only pool worker's: hand the window back to the card's parent
+    # (HeavyWindowDeferred) at an active region of this many variants or at
+    # a genotype reduction of device size; 0 never does
+    defer_heavy: int = 0
 
 
 @dataclass
@@ -226,8 +220,8 @@ class CallerBase:
         # parent: a dense candidate cluster means beam growth + big
         # populates + big genotype reductions — seconds on the accelerator,
         # minutes on a worker (the 10 Mb heavy-tail, BASELINE.md round 4).
-        # The threshold is variants-per-active-region; 0/unset disables.
-        defer_at = int(os.environ.get("OCTOPUS_TPU_DEFER_HEAVY", "0"))
+        # The threshold is variants-per-active-region; 0 disables.
+        defer_at = cfg.defer_heavy
         regions_list = propose_active_regions(
             candidates, merge_distance=merge_distance,
             max_variants_per_region=None)
@@ -463,7 +457,8 @@ class CallerBase:
             p -= 1
         result = generate_all_genotypes(H, p)
         model = IndividualModel(ctx.prior_model,   # has evaluate_many
-                                use_device=cfg.use_device, device=cfg.device)
+                                use_device=cfg.use_device, device=cfg.device,
+                                defer_device=cfg.defer_heavy > 0)
         ref_idx = next((i for i, h in enumerate(ctx.haplotypes)
                         if not h.variants), None)
         while p < ploidy:

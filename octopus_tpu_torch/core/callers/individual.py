@@ -48,7 +48,8 @@ class IndividualCaller(CallerBase):
         cfg = self.config
         genotypes = self.propose_genotypes(ctx, cfg.ploidy, ctx.lnL[0])
         model = IndividualModel(_PriorAdapter(ctx.prior_model),
-                                use_device=cfg.use_device, device=cfg.device)
+                                use_device=cfg.use_device, device=cfg.device,
+                                defer_device=cfg.defer_heavy > 0)
         latents = model.evaluate(genotypes, ctx.lnL[0])
         log_post = latents.log_posteriors
         map_genotype = genotypes[int(np.argmax(log_post))]

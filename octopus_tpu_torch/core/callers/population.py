@@ -53,7 +53,8 @@ class PopulationCaller(CallerBase):
         genotypes = self.propose_genotypes(
             ctx, cfg.ploidy, np.concatenate(ctx.lnL, axis=1))
         model = IndividualModel(_Prior(ctx.prior_model), use_device=cfg.use_device,
-                                device=cfg.device)
+                                device=cfg.device,
+                                defer_device=cfg.defer_heavy > 0)
         latents = [model.evaluate(genotypes, ctx.lnL[s]) for s in range(n_samples)]
         if cfg.joint_model and n_samples > 1:
             return self._call_joint(ctx, genotypes, latents)
@@ -69,7 +70,8 @@ class PopulationCaller(CallerBase):
             return None
         model = IndividualModel(_Prior(ctx.prior_model),
                                 use_device=self.config.use_device,
-                                device=self.config.device)
+                                device=self.config.device,
+                                defer_device=self.config.defer_heavy > 0)
         mps = []
         for s, marg in enumerate(marginal_log_posts):
             k = min(5, len(genotypes))

@@ -145,7 +145,8 @@ class TrioCaller(CallerBase):
         (TrioCaller::calculate_model_posterior, trio_caller.cpp:458-508)."""
         model = IndividualModel(_Prior(ctx.prior_model),
                                 use_device=self.config.use_device,
-                                device=self.config.device)
+                                device=self.config.device,
+                                defer_device=self.config.defer_heavy > 0)
         log_post = latents.log_posteriors
         mps = []
         for member in range(3):

@@ -640,6 +640,60 @@ def scorer_name(device: torch.device) -> str:
     return kernel if device.type == "cuda" else kernel + "_plain"
 
 
+def _scorer(device: torch.device):
+    """The function `scorer_name(device)` names."""
+    return {"pairhmm": pairhmm_scores_cuda,
+            "pairhmm_plain": pairhmm_scores_plain,
+            "pairhmm_lanes": pairhmm_scores_lanes_cuda,
+            "pairhmm_lanes_plain": pairhmm_scores_lanes_plain}[scorer_name(device)]
+
+
+# The fewest pairs a batch holds before it shards over several cards; None
+# shards none. Set from scripts/torch_shard_floor.py (PERF.md, Findings).
+SHARD_MIN_PAIRS: int | None = None
+
+
+def _shardable_devices(B: int, device: torch.device) -> list[torch.device]:
+    """The local cards one batch of B pairs shards over; [device] alone
+    means unsharded.
+
+    Pairs are independent, so a batch of at least SHARD_MIN_PAIRS pairs
+    shards whenever every card gets a whole number of pairs: the most local
+    cards n with B % n == 0 (the reference's quantum off the TPU, one
+    pair), from `device` on. Only a CUDA device shards;
+    OCTOPUS_TPU_NO_SHARD=1 turns sharding off."""
+    if (device.type != "cuda" or SHARD_MIN_PAIRS is None
+            or B < SHARD_MIN_PAIRS
+            or os.environ.get("OCTOPUS_TPU_NO_SHARD") == "1"):
+        return [device]
+    n = torch.cuda.device_count()
+    while n > 1 and B % n:
+        n -= 1
+    if n <= 1:
+        return [device]
+    from ...parallel.sharding import make_mesh
+    first = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return make_mesh(n, first)
+
+
+def _pairhmm_scores_sharded(devices, tgt, qual, win, opn, ext, mask, prior, *,
+                            pad: int, nuc_prior: int) -> torch.Tensor:
+    """Data-parallel pair-HMM over `devices`: pure batch sharding, no
+    collectives. Shard i, the i-th of len(devices) near-equal contiguous
+    parts of the batch, is copied to devices[i] and scored there by the
+    scorer `scorer_name` picks for it (one kernel launch a card, on its
+    current stream, so the cards overlap); the host gathers the scores in
+    shard order: (B,) int32 on the CPU."""
+    tracks = [torch.as_tensor(a) for a in (tgt, qual, win, opn, ext, mask, prior)]
+    parts = [torch.tensor_split(t, len(devices)) for t in tracks]
+    scores = []
+    for i, dev in enumerate(devices):
+        shard = [p[i].to(device=dev, dtype=torch.int32) for p in parts]
+        scores.append(_scorer(dev)(*shard, pad=pad, nuc_prior=nuc_prior))
+    return torch.cat([s.cpu() for s in scores])
+
+
 def pairhmm_scores(tgt, qual, win, opn, ext, mask, prior, *, pad: int = 8,
                    nuc_prior: int = DEFAULT_NUC_PRIOR,
                    device: torch.device | str | None = None) -> torch.Tensor:
@@ -649,17 +703,20 @@ def pairhmm_scores(tgt, qual, win, opn, ext, mask, prior, *, pad: int = 8,
     which raises without CUDA; pass device="cpu" to run on the CPU. Inputs
     are copied to `device`. A CUDA device runs csrc/pairhmm.cu, or
     csrc/pairhmm_lanes.cu under OCTOPUS_TPU_UNROLLED_HMM=1; the CPU runs
-    the kernel's plain twin."""
+    the kernel's plain twin. On a host with several cards a batch of
+    SHARD_MIN_PAIRS or more shards over them (`_shardable_devices`) and the
+    scores come back on the CPU."""
     if device is None:
         device = tgt.device if isinstance(tgt, torch.Tensor) else "cuda"
     dev = resolve_device(device)
+    devices = _shardable_devices(int(tgt.shape[0]), dev)
+    if len(devices) > 1:
+        return _pairhmm_scores_sharded(devices, tgt, qual, win, opn, ext,
+                                       mask, prior, pad=pad,
+                                       nuc_prior=nuc_prior)
     args = [torch.as_tensor(a).to(device=dev, dtype=torch.int32)
             for a in (tgt, qual, win, opn, ext, mask, prior)]
-    fn = {"pairhmm": pairhmm_scores_cuda,
-          "pairhmm_plain": pairhmm_scores_plain,
-          "pairhmm_lanes": pairhmm_scores_lanes_cuda,
-          "pairhmm_lanes_plain": pairhmm_scores_lanes_plain}[scorer_name(dev)]
-    return fn(*args, pad=pad, nuc_prior=nuc_prior)
+    return _scorer(dev)(*args, pad=pad, nuc_prior=nuc_prior)
 
 
 __all__ = [

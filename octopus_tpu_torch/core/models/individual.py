@@ -15,7 +15,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from .genotype_likelihoods import genotype_log_likelihoods
+from ...errors import HeavyWindowDeferred
+from .genotype_likelihoods import genotype_log_likelihoods, runs_on_device
 
 
 @dataclass
@@ -36,14 +37,22 @@ def logsumexp(a: np.ndarray) -> float:
 
 
 class IndividualModel:
+    """defer_device (a CPU-only pool worker's): raise HeavyWindowDeferred
+    rather than run a device-sized genotype reduction here, whose float32
+    bits on this CPU would differ from the card's."""
+
     def __init__(self, prior_model, use_device: bool = True,
-                 device: str = "cuda"):
+                 device: str = "cuda", defer_device: bool = False):
         self.prior_model = prior_model
         self.use_device = use_device
         self.device = device
+        self.defer_device = defer_device
 
     def evaluate(self, genotypes: np.ndarray, lnL: np.ndarray) -> IndividualLatents:
         """genotypes: (G, P) haplotype index matrix; lnL: (H, R) per-read."""
+        if self.defer_device and runs_on_device(lnL, genotypes,
+                                                self.use_device):
+            raise HeavyWindowDeferred()
         log_liks = genotype_log_likelihoods(lnL, genotypes,
                                             use_device=self.use_device,
                                             device=self.device)

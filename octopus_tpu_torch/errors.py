@@ -93,6 +93,19 @@ class NotPortedError(UserError):
         self.feature = feature
 
 
+class HeavyWindowDeferred(Exception):
+    """Not an error: a CPU-only pool worker declines a window so the
+    card's parent runs it (only when the caller config's defer_heavy is
+    set): a dense active region (begin, end), or a genotype reduction of
+    device size (IndividualModel; no region)."""
+
+    def __init__(self, begin: int | None = None, end: int | None = None):
+        super().__init__("heavy window deferred to parent" if begin is None
+                         else f"heavy window {begin}-{end} deferred to parent")
+        self.begin = begin
+        self.end = end
+
+
 class MissingFileError(UserError):
     """missing_file_error.cpp:22-44."""
 
@@ -261,5 +274,5 @@ __all__ = [
     "OctopusError", "UserError", "SystemError_", "ProgramError",
     "NotPortedError", "MissingFileError", "MissingIndexError", "MalformedFileError",
     "UnwritableFileError", "BadRegionError", "ConflictingOptionsError",
-    "MissingSampleError", "CallingBug", "format_error",
+    "MissingSampleError", "CallingBug", "HeavyWindowDeferred", "format_error",
 ]

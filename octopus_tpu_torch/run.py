@@ -12,12 +12,16 @@ Orchestration design (octopus.cpp:467-529 and :1226-1342):
 
 This port runs all six callers: individual, population (the default for
 several samples), trio, cancer (tumour with or without a normal),
-polyclone and cell, serially or on a thread pool over windows, with
-inline threshold CSR; its pair-HMM, genotype reductions and VB engines run
-on `--device` (default cuda). What it does not run yet raises
-NotPortedError when asked for (config.options.check_unported): the process
-pool, the work queue and sharding, the forest and training CSR, --bamout,
---filter-vcf and CRAM input.
+polyclone and cell, with inline threshold CSR; its pair-HMM, genotype
+reductions and VB engines run on `--device` (default cuda). Windows run
+serially, on a process pool (`--threads N`: CPU-only workers, the parent
+keeps the card and runs the dense windows they hand back), or on a thread
+pool (`--threads N --thread-workers`). Several processes or hosts share a
+run through `--shard-index/--num-shards` and `--work-queue`; the
+multi-host environment (OCTOPUS_TPU_COORDINATOR, OCTOPUS_TPU_DISTRIBUTED)
+starts torch.distributed. What it does not run yet raises NotPortedError
+when asked for (config.options.check_unported): the forest and training
+CSR, --bamout, --filter-vcf and CRAM input.
 """
 
 from __future__ import annotations
@@ -313,9 +317,56 @@ def _make_caller(kind: str, reference, contig: str, samples: list[str],
     return IndividualCaller(reference, contig, CallerConfig())
 
 
+def _maybe_init_distributed() -> bool:
+    """Start torch.distributed when launched as one process of a multi-host
+    job; True when this call started it. Two activation paths:
+
+    * explicit: OCTOPUS_TPU_COORDINATOR=<host:port> plus
+      OCTOPUS_TPU_NUM_PROCESSES / OCTOPUS_TPU_PROCESS_ID, a gloo group
+      rendezvousing at tcp://<host:port>;
+    * OCTOPUS_TPU_DISTRIBUTED=1: init_method="env://", the MASTER_ADDR,
+      MASTER_PORT, RANK and WORLD_SIZE that torchrun sets.
+
+    Either way each process then calls its own striped or queued windows
+    (--shard-index / --work-queue) and the shard merge remains the
+    cross-host gather; device sharding stays on each host's local cards.
+    No collective runs over the group: it is the job's start-up barrier,
+    so a process with a wrong world size, rank or address fails at start
+    rather than after its windows, as the reference's
+    jax.distributed.initialize does."""
+    coord = os.environ.get("OCTOPUS_TPU_COORDINATOR")
+    auto = os.environ.get("OCTOPUS_TPU_DISTRIBUTED")
+    if not coord and not auto:
+        return False
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return False
+    if coord:
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://{coord}",
+            world_size=int(os.environ["OCTOPUS_TPU_NUM_PROCESSES"]),
+            rank=int(os.environ["OCTOPUS_TPU_PROCESS_ID"]))
+    else:
+        dist.init_process_group("gloo", init_method="env://")
+    print(f"octopus-tpu-torch: torch.distributed initialised "
+          f"(process {dist.get_rank()}/{dist.get_world_size()})",
+          file=sys.stderr)
+    return True
+
+
 def run_calling(args) -> int:
     from .config.options import check_unported
     check_unported(args)
+    started = _maybe_init_distributed()
+    try:
+        return _run_calling(args)
+    finally:
+        if started:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _run_calling(args) -> int:
     if getattr(args, "profile", None):
         # torch.profiler trace of the whole run (host and, on a card, CUDA
         # kernels); the reference's analog is its BENCHMARK phase-timer
@@ -327,7 +378,7 @@ def run_calling(args) -> int:
             activities.append(ProfilerActivity.CUDA)
         profile_dir, args.profile = args.profile, None
         with profile(activities=activities) as prof:
-            code = run_calling(args)
+            code = _run_calling(args)
         os.makedirs(profile_dir, exist_ok=True)
         trace = os.path.join(profile_dir, "trace.json")
         prof.export_chrome_trace(trace)
@@ -507,6 +558,84 @@ def _setup_components(args):
             annotations, header, refcall_mode)
 
 
+# -- process-pool workers ----------------------------------------------------
+# Worker processes rebuild the (read-only) components from the parsed args in
+# their own address space, then call windows independently: real parallelism
+# for the numpy/python host pipeline, which the GIL serialises under the
+# thread pool. Workers are CPU-only (device "cpu", no visible CUDA card), so
+# only the parent process owns the card.
+
+_WORKER_STATE = None
+
+
+@dataclass
+class PoolCounts:
+    """What the process pool did: windows the workers called, windows they
+    handed back to the parent (HeavyWindowDeferred), and pools that broke
+    and fell back to the thread pool."""
+
+    worker_windows: int = 0
+    deferred_windows: int = 0
+    fallbacks: int = 0
+
+    def reset(self) -> None:
+        self.worker_windows = self.deferred_windows = self.fallbacks = 0
+
+
+POOL = PoolCounts()
+
+
+def _process_worker_init(args_dict, env):
+    os.environ.update(env)
+    import argparse
+    global _WORKER_STATE
+    args = argparse.Namespace(**args_dict)
+    from .utils import timers
+    timers.enabled = bool(getattr(args, "benchmark", False))
+    setup = _setup_components(args)
+    if isinstance(setup, int):  # pragma: no cover - validated by parent
+        raise RuntimeError(f"worker setup failed with exit code {setup}")
+    (components, reference, bams, samples, regions, pipe, csr, annotations,
+     header, refcall_mode) = setup
+    _WORKER_STATE = dict(
+        args=args, reference=reference, bams=bams, samples=samples,
+        pipe=pipe, csr=csr, annotations=annotations, header=header,
+        refcall_mode=refcall_mode, caller_cache={},
+        caller_kind=(components.caller_kind if components
+                     else getattr(args, "caller", "auto")),
+        caller_config=components.caller if components else None)
+
+
+def _process_worker_run(task):
+    contig, begin, end, key, shard_dir = task
+    st = _WORKER_STATE
+    window = Window(contig, begin, end)
+    from .utils import timers
+    before = dict(timers._totals)
+    from .core.callers.base import HeavyWindowDeferred
+    try:
+        records = _call_window(window, st["reference"], st["bams"],
+                               st["samples"], st["pipe"], st["csr"],
+                               st["caller_cache"], st["caller_kind"],
+                               st["caller_config"], st["args"],
+                               st["refcall_mode"], st["annotations"])
+    except HeavyWindowDeferred:
+        # dense window: decline it so the card-owning parent runs it
+        return key, None, {}
+    records = _restrict_records(records, st["args"])
+    shard_path = os.path.join(shard_dir, key + ".vcf")
+    with VcfWriter(shard_path, st["header"]) as w:
+        for r in records:
+            w.write(r)
+    # per-window phase-timer delta: the parent aggregates these so
+    # --benchmark shows the whole pool's phase breakdown, not just the
+    # parent process's
+    delta = {k: round(v - before.get(k, 0.0), 4)
+             for k, v in timers._totals.items()
+             if v - before.get(k, 0.0) > 0} if timers.enabled else {}
+    return key, shard_path, delta
+
+
 def _restrict_records(records, args):
     """--somatics-only / --denovos-only / --sites-only record filtering
     (option_collation.cpp:2368-2396)."""
@@ -591,9 +720,21 @@ def _run_calling_main(args, components, reference, bams, samples,
     caller_kind = (components.caller_kind if components
                    else getattr(args, "caller", "auto"))
     caller_config = components.caller if components else None
-    n_records = 0
     n_threads = max(int(getattr(args, "threads", 0) or 0), 1)
     pending = [w for w in windows if w.key not in done]
+    shard_index = getattr(args, "shard_index", None)
+    num_shards = getattr(args, "num_shards", None)
+    if shard_index is not None and num_shards:
+        # stripe over the stable full window list so every window belongs to
+        # exactly one shard regardless of resume state
+        from .parallel.work_queue import stripe
+        keys = set(stripe([w.key for w in windows], shard_index, num_shards))
+        pending = [w for w in pending if w.key in keys]
+    queue = None
+    if getattr(args, "work_queue", False):
+        from .parallel.work_queue import RegionWorkQueue
+        queue = RegionWorkQueue(os.path.join(shard_dir, "queue"))
+        pending = [w for w in pending if queue.try_claim(w.key)]
     progress.advance(sum(w.end - w.begin for w in windows) -
                      sum(w.end - w.begin for w in pending))
 
@@ -606,26 +747,58 @@ def _run_calling_main(args, components, reference, bams, samples,
         with VcfWriter(shard_path, header) as w:
             for r in records:
                 w.write(r)
-        return window, shard_path, len(records)
+        return window, shard_path
 
-    if n_threads > 1 and len(pending) > 1:
-        # worker pool over windows (--thread-workers; check_unported refuses
-        # the process pool); journal written as futures complete in
+    def finish(window, shard_path):
+        done[window.key] = shard_path
+        _write_journal(journal_path, done, window.key)
+        if queue is not None:
+            queue.mark_done(window.key, {"shard": shard_path})
+        progress.advance(window.end - window.begin)
+
+    # more workers than cores only adds spawn and import cost (each worker
+    # is a whole python process importing torch)
+    n_workers = max(1, min(n_threads, os.cpu_count() or 1))
+    use_processes = (n_workers > 1 and len(pending) > 1
+                     and not getattr(args, "thread_workers", False))
+    if use_processes:
+        from concurrent.futures.process import BrokenProcessPool
+        try:
+            _run_process_pool(args, pending, shard_dir, n_workers, run_one,
+                              finish)
+        except BrokenProcessPool:
+            # spawn re-imports the caller's __main__; an unguarded calling
+            # script kills its own workers. Fall back to the in-process
+            # pool (the journal skips completed windows).
+            POOL.fallbacks += 1
+            print("octopus-tpu-torch: process workers failed (is the calling "
+                  "script missing an `if __name__ == '__main__'` guard?); "
+                  "falling back to threads", file=sys.stderr)
+            use_processes = False
+            pending = [w for w in pending if w.key not in done]
+    if not use_processes and n_threads > 1 and len(pending) > 1:
+        # thread pool over windows; journal written as futures complete in
         # submission order (octopus.cpp:1226-1342 holdback-and-order design)
         from concurrent.futures import ThreadPoolExecutor
         with ThreadPoolExecutor(max_workers=n_threads) as ex:
-            for window, shard_path, n in ex.map(run_one, pending):
-                done[window.key] = shard_path
-                _write_journal(journal_path, done, window.key)
-                n_records += n
-                progress.advance(window.end - window.begin)
-    else:
+            for window, shard_path in ex.map(run_one, pending):
+                finish(window, shard_path)
+    elif not use_processes:
         for window in pending:
-            window, shard_path, n = run_one(window)
-            n_records += n
-            done[window.key] = shard_path
-            _write_journal(journal_path, done, window.key)
-            progress.advance(window.end - window.begin)
+            finish(*run_one(window))
+    # under the work queue, the last finisher merges the full set once every
+    # host's windows are done (composable per-window shards, octopus.cpp:
+    # 573-588, generalised across hosts)
+    if queue is not None:
+        if not queue.wait_all([w.key for w in windows], timeout_s=0.0):
+            print("octopus-tpu-torch: other hosts still working; shards left "
+                  "for the final finisher", file=sys.stderr)
+            return 0
+        for w in windows:
+            if w.key not in done:
+                res = queue.result(w.key)
+                if res and res.get("result", {}).get("shard"):
+                    done[w.key] = res["result"]["shard"]
     shard_paths = [done[w.key] for w in windows if w.key in done
                    and os.path.exists(done[w.key])]
     _reconcile_shards(windows, done, reference, header)
@@ -660,6 +833,90 @@ def _run_calling_main(args, components, reference, bams, samples,
     if timers.enabled:
         print(timers.report(), file=sys.stderr)
     return 0
+
+
+def _run_process_pool(args, pending, shard_dir, n_workers, run_one, finish):
+    """Call `pending` on a spawned process pool of CPU-only workers (the
+    reference's thread scheduler maps to processes here because the host
+    pipeline is python; octopus.cpp:1226-1342). The parent harvests results
+    in completion order and runs ONLY the dense windows that workers
+    decline (HeavyWindowDeferred), on its own device: a dense cluster costs
+    seconds on the card and minutes on a CPU worker, and the parent taking
+    light windows too would only oversubscribe the cores."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+    from collections import deque
+    from concurrent.futures import ProcessPoolExecutor
+    from .utils import timers
+    if getattr(args, "device", "cuda") == "cuda":
+        # CUDA reads CUDA_VISIBLE_DEVICES when it starts: start it in the
+        # parent before the workers' empty value is set below
+        import torch
+        from .device import resolve_device
+        resolve_device("cuda")
+        torch.cuda.init()
+    window_of = {w.key: w for w in pending}
+    env = {"CUDA_VISIBLE_DEVICES": "",
+           "OCTOPUS_TPU_HOST_HMM_MAX": os.environ.get(
+               "OCTOPUS_TPU_WORKER_HOST_HMM_MAX", "1000000000")}
+    # the parent has changed into --working-directory already. Workers
+    # decline dense windows (an active region of >= defer_heavy variants, or
+    # a device-sized genotype reduction) so the card's parent runs them
+    worker_args = dict(vars(args), device="cpu", working_directory=None,
+                       defer_heavy=int(os.environ.get(
+                           "OCTOPUS_TPU_DEFER_HEAVY_AT", "8")))
+    todo = deque(pending)
+    deferred = deque()
+    inflight: set = set()
+
+    def harvest(result):
+        key, shard_path, tdelta = result
+        if shard_path is None:          # worker declined: the parent runs it
+            POOL.deferred_windows += 1
+            deferred.append(window_of[key])
+            return
+        POOL.worker_windows += 1
+        finish(window_of[key], shard_path)
+        for tk, tv in tdelta.items():
+            timers._totals[tk] += tv
+            timers._counts[tk] += 1
+
+    # spawned workers inherit the environment they start in: no visible card
+    saved = os.environ.get("CUDA_VISIBLE_DEVICES")
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    try:
+        with ProcessPoolExecutor(
+                max_workers=min(n_workers, len(pending)),
+                mp_context=mp.get_context("spawn"),
+                initializer=_process_worker_init,
+                initargs=(worker_args, env)) as ex:
+            def submit():
+                w = todo.popleft()
+                inflight.add(ex.submit(_process_worker_run,
+                                       (w.contig, w.begin, w.end, w.key,
+                                        shard_dir)))
+
+            # two tasks in flight per worker: workers never idle while the
+            # parent is busy inside a deferred window
+            for _ in range(min(2 * n_workers, len(todo))):
+                submit()
+            while inflight or deferred:
+                while deferred:
+                    finish(*run_one(deferred.popleft()))
+                if not inflight:
+                    break
+                done_futs, _ = cf.wait(inflight,
+                                       return_when=cf.FIRST_COMPLETED)
+                for f in done_futs:
+                    inflight.discard(f)
+                    harvest(f.result())
+                    if todo:
+                        submit()
+    finally:
+        if saved is None:
+            os.environ.pop("CUDA_VISIBLE_DEVICES", None)
+        else:
+            os.environ["CUDA_VISIBLE_DEVICES"] = saved
 
 
 def _call_window(window, reference, bams, samples, pipe, csr, caller_cache,

@@ -137,9 +137,7 @@ UNPORTED = {
     "bamout": ["--bamout", "evidence.bam"],
     "filter_vcf": ["--filter-vcf", "calls.vcf"],
     "forest_model": ["--forest-model", "forest.npz"],
-    "work_queue": ["--work-queue"],
-    "shard_index": ["--shard-index", "0", "--num-shards", "2"],
-    "process_pool": ["--threads", "4"],
+    "filter_vcf_threads": ["--filter-vcf", "calls.vcf", "--threads", "4"],
     "training_csr": ["--disable-call-filtering", "--annotations", "AD"],
 }
 

@@ -91,6 +91,7 @@ def test_config_conversion_keeps_every_setting():
                                           device="cpu")
     d = dataclasses.asdict(config)
     assert d.pop("device") == "cpu"
+    assert d.pop("defer_heavy") == 0
     assert d["likelihood"].pop("device") == "cpu"
     assert d["likelihood"].pop("host_hmm_max") == 384
     assert d == dataclasses.asdict(ref_config)

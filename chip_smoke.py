@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Thirteen phases, each printing JSON lines:
+Fifteen phases, each printing JSON lines:
 
 1. build: g++ builds the host extension and nvcc builds the three CUDA
    kernels (csrc/pairhmm.cu, pairhmm_lanes.cu, pairhmm_cost.cu), all from
@@ -97,8 +97,20 @@ Thirteen phases, each printing JSON lines:
    bit-equal to the unsharded kernel and its plain twin, one launch a
    shard; sharded_genotype_step within (rtol 2e-4, atol 2e-3) of the
    unsharded torch reduction.
+14. csr_tools_cli: the cli phase's BAM and serial VCF through inline
+   forest CSR (--forest-model resources/forests/germline.npz), --filter-vcf
+   of the serial VCF (threshold, and with the forest) and --bamout, each at
+   gate 0 and the default gate, --bamout also through kernel #3 at gate 0;
+   every launch of the gate-0 runs held against its plain twin bit for bit.
+   A tool's records (and BAM) must be identical at every gate; the
+   threshold --filter-vcf and --bamout's calls must equal the serial run's
+   records (the inline threshold CSR);
+15. cram_cli: the same reads rewritten as a CRAM by the port's cram_writer,
+   called at the default gate in turns with the BAM (bam, cram, bam); every
+   run must write the serial run's records.
 
-Phases 10-13 run after the cli phase, in the order above.
+Phases 10-12, 14 and 15 run after the cli phase, in the order above, and
+13 after them.
 
 Then it prints the card's name and power limit, the kernel table, and as
 its last line {"ok": true, "device": {...}}. Any failure raises, and the
@@ -709,18 +721,38 @@ def kept_launches(pb, into, kernel="pairhmm", la=None):
             la.HaplotypeLikelihoodArray._device_scores = scores
 
 
+# pairs a plain-twin call of check_launches holds at most
+CHECK_PAIRS = 1 << 16
+
+
 def check_launches(pb, kept, phase, kernel="pairhmm"):
     """Every kept launch's scores against the kernel's plain twin on the
     same CUDA tensors; each launch timed alone, and all of them replayed,
-    against their bounds, per source."""
+    against their bounds, per source. The plain twin scores each pair on
+    its own, so launches of one shape are checked in one call of up to
+    CHECK_PAIRS pairs, their tracks concatenated."""
+    import torch
     plain = {"pairhmm": pb.pairhmm_scores_plain,
              "pairhmm_lanes": pb.pairhmm_scores_lanes_plain}[kernel]
     launch = getattr(pb, LAUNCHERS[kernel])
     err = 0
+    same_shape = collections.defaultdict(list)
+    for tracks, pad, nuc_prior, got, _ in kept:
+        same_shape[(tracks[0].shape[1], pad, nuc_prior)].append((tracks, got))
+    for (_, pad, nuc_prior), launches in same_shape.items():
+        group, pairs = [], 0
+        for i, (tracks, got) in enumerate(launches):
+            group.append((tracks, got))
+            pairs += tracks[0].shape[0]
+            if pairs < CHECK_PAIRS and i + 1 < len(launches):
+                continue
+            want = plain(*(torch.cat(t) for t in zip(*(g[0] for g in group))),
+                         pad=pad, nuc_prior=nuc_prior)
+            got = torch.cat([g[1] for g in group])
+            err = max(err, int((got.long() - want.long()).abs().max()))
+            group, pairs = [], 0
     by_source = collections.defaultdict(list)
     for tracks, pad, nuc_prior, got, source in kept:
-        want = plain(*tracks, pad=pad, nuc_prior=nuc_prior)
-        err = max(err, int((got.long() - want.long()).abs().max()))
         B, R = tracks[0].shape
         ms = cuda_ms(lambda: launch(tracks, pad=pad, nuc_prior=nuc_prior),
                      reps=3)
@@ -1156,11 +1188,13 @@ def check_vb(kept, phase):
     return worst
 
 
-def run_caller_cli(tmp, phase, label, argv, env, device, timed):
+def run_caller_cli(tmp, phase, label, argv, env, device, timed,
+                   sources=("populate", "assignment")):
     """One CLI run: the environment set, every counter reset; returns
     (record lines, the JSON row). On the card, a run with the host-DP gate
-    at 0 must launch kernel #1 from populate and read assignment, and one
-    with the VB gate at 0 must run every VB evaluation there."""
+    at 0 must launch its kernel (#3 under OCTOPUS_TPU_UNROLLED_HMM, else
+    #1) from each of `sources`, and one with the VB gate at 0 must run
+    every VB evaluation there."""
     import os
     import torch
     from octopus_tpu_torch import cli
@@ -1212,9 +1246,11 @@ def run_caller_cli(tmp, phase, label, argv, env, device, timed):
            "pass_records": sum(line.split("\t")[6] == "PASS"
                                for line in lines)}
     if device == "cuda" and env.get("OCTOPUS_TPU_HOST_HMM_MAX") == "0":
-        for src in ("populate", "assignment"):
-            if not la.ROUTING.job_sets[(src, "pairhmm")]:
-                raise AssertionError(f"{label}: kernel #1 never ran from "
+        scorer = ("pairhmm_lanes" if env.get("OCTOPUS_TPU_UNROLLED_HMM")
+                  else "pairhmm")
+        for src in sources:
+            if not la.ROUTING.job_sets[(src, scorer)]:
+                raise AssertionError(f"{label}: {scorer} never ran from "
                                      f"{src}")
     if device == "cuda" and env.get("OCTOPUS_TPU_VB_DEVICE_MIN") == "0":
         if not vb.COUNTS.device or vb.COUNTS.host:
@@ -1645,6 +1681,151 @@ def phase_shard_cli(inputs, tmp, device="cuda"):
     return sum(launches)
 
 
+# ---------------------------------------------------------------------------
+# phases 14-15: the CSR tools, the evidence BAM and CRAM input
+# ---------------------------------------------------------------------------
+
+# label -> environment; each CSR tool runs at every label it lists
+CSR_GATES = {"gate0": {"OCTOPUS_TPU_HOST_HMM_MAX": "0"},
+             "gate0_lanes": {"OCTOPUS_TPU_HOST_HMM_MAX": "0",
+                             "OCTOPUS_TPU_UNROLLED_HMM": "1"},
+             "default_gate": {}}
+# tool -> (CLI arguments past the input, gates, the sources kernel #1 (or
+# #3) must serve at gate 0); {forest}, {serial} and {bamout} are filled in
+CSR_TOOLS = {
+    "forest": (["--forest-model", "{forest}"], ("gate0", "default_gate"),
+               ("populate", "assignment")),
+    "filter_vcf": (["--filter-vcf", "{serial}"], ("gate0", "default_gate"),
+                   ("assignment",)),
+    "filter_vcf_forest": (["--filter-vcf", "{serial}", "--forest-model",
+                           "{forest}"], ("gate0", "default_gate"),
+                          ("assignment",)),
+    "bamout": (["--bamout", "{bamout}"],
+               ("gate0", "gate0_lanes", "default_gate"),
+               ("populate", "assignment")),
+}
+
+
+# the shipped germline forest, from the checkout's root
+FOREST = "resources/forests/germline.npz"
+
+
+def phase_csr_tools_cli(inputs, tmp, device="cuda"):
+    """The cli phase's BAM and its serial VCF through the CSR tools: inline
+    forest CSR, --filter-vcf of the serial VCF (threshold, and with the
+    forest) and --bamout, each at gate 0 and the default gate (--bamout also
+    through kernel #3). Every launch of the gate-0 runs is held against its
+    plain twin. A tool's outputs must be identical at every gate, the
+    threshold --filter-vcf and --bamout's calls must equal the serial run's
+    records, and every BAM must be identical. Returns ({kernel: launches in
+    the gate-0 runs}, {kernel: the largest error of its kept launches})."""
+    import os
+    from octopus_tpu_torch.core.likelihood import likelihood_array as la
+    from octopus_tpu_torch.core.likelihood import pairhmm_batch as pb
+    with open(inputs["serial"]) as fh:
+        serial = [line.rstrip("\n") for line in fh if not line.startswith("#")]
+    inline_forest = None
+    launches = {"pairhmm": 0, "pairhmm_lanes": 0}
+    kept = {"pairhmm": [], "pairhmm_lanes": []}
+    for tool, (argv, gates, sources) in CSR_TOOLS.items():
+        outputs = {}
+        for label in gates:
+            env = CSR_GATES[label]
+            kernel = ("pairhmm_lanes" if env.get("OCTOPUS_TPU_UNROLLED_HMM")
+                      else "pairhmm")
+            bamout = os.path.join(tmp, f"{tool}_{label}.bam")
+            args = ["-R", inputs["fa"], "-I", inputs["bam"],
+                    *(a.format(forest=FOREST, serial=inputs["serial"],
+                               bamout=bamout) for a in argv)]
+            gate0 = "OCTOPUS_TPU_HOST_HMM_MAX" in env
+            keep = (kept_launches(pb, kept[kernel], kernel, la)
+                    if gate0 and device == "cuda"
+                    else contextlib.nullcontext())
+            with keep:
+                lines, row = run_caller_cli(tmp, "csr_tools_cli",
+                                            f"{tool}_{label}", args, env,
+                                            device, True, sources)
+            if gate0:
+                launches[kernel] += row["launches"][kernel]
+            if tool == "bamout":
+                with open(bamout, "rb") as fh:
+                    outputs[label] = (lines, fh.read())
+                row["bam_bytes"] = len(outputs[label][1])
+            else:
+                outputs[label] = (lines, b"")
+            row.update({"tool": tool, "region_kb": inputs["kb"]})
+            if tool == "forest":
+                inline_forest = lines
+            elif tool == "filter_vcf_forest" and inline_forest is not None:
+                # the reference's standalone pass adds the threshold filter
+                # to the forest's and scores from the VCF's records
+                row["lines_differing_from_inline_forest"] = sum(
+                    a != b for a, b in zip(lines, inline_forest))
+            emit(row)
+        first = next(iter(outputs.values()))
+        if any(out != first for out in outputs.values()):
+            raise AssertionError(f"csr_tools_cli {tool}: outputs differ "
+                                 f"across {list(outputs)}")
+        if tool in ("filter_vcf", "bamout") and first[0] != serial:
+            raise AssertionError(f"csr_tools_cli {tool}: records differ from "
+                                 "the serial run's (inline threshold CSR)")
+        if tool.endswith("forest") and not all(
+                "RFGQ" in line.split("\t")[8] for line in first[0]):
+            raise AssertionError(f"csr_tools_cli {tool}: a record lacks RFGQ")
+    errs = {k: (check_launches(pb, v, "csr_tools_cli_launches", k)
+                if device == "cuda" else 0) for k, v in kept.items()}
+    if device == "cuda" and not all(launches.values()):
+        raise AssertionError(f"csr_tools_cli: launches {launches}")
+    return launches, errs
+
+
+CRAM_RUNS = ("bam", "cram", "bam")
+
+
+def phase_cram_cli(inputs, tmp, device="cuda"):
+    """The cli phase's BAM rewritten as a CRAM by the port's cram_writer
+    (timed apart), then called at the default gate in turns with the BAM
+    (bam, cram, bam): every run must write the serial run's records.
+    Returns kernel #1's launches in the CRAM runs."""
+    import os
+    from octopus_tpu_torch.io.bam import BamFile
+    from octopus_tpu_torch.io.cram_writer import CramWriter
+    from octopus_tpu_torch.io.fasta import IndexedFasta, ReferenceGenome
+    with open(inputs["serial"]) as fh:
+        serial = [line.rstrip("\n") for line in fh if not line.startswith("#")]
+    t0 = time.perf_counter()
+    reference = ReferenceGenome(IndexedFasta(inputs["fa"]))
+    contig = reference.contig_names()[0]
+    n = reference.contig_size(contig)
+    got = BamFile(inputs["bam"]).fetch(contig, 0, n, keep_names=True)
+    (sample, batch), = got.items()
+    cram = os.path.join(tmp, "reads.cram")
+    with CramWriter(cram, [contig], [n], samples=[sample],
+                    reference=reference) as w:
+        w.write_batch(batch, sample=sample)
+    emit({"phase": "cram_input", "reads": len(batch),
+          "cram_bytes": os.path.getsize(cram),
+          "bam_bytes": os.path.getsize(inputs["bam"]),
+          "write_s": time.perf_counter() - t0})
+    walls = collections.defaultdict(list)
+    launches = 0
+    for i, kind in enumerate(CRAM_RUNS):
+        src = cram if kind == "cram" else inputs["bam"]
+        lines, row = run_caller_cli(tmp, "cram_cli", f"{kind}_{i}",
+                                    ["-R", inputs["fa"], "-I", src], {},
+                                    device, True)
+        row.update({"input": kind, "region_kb": inputs["kb"]})
+        emit(row)
+        walls[kind].append(row["wall_s"])
+        if kind == "cram":
+            launches += row["launches"]["pairhmm"]
+        if lines != serial:
+            raise AssertionError(f"cram_cli {kind}: records differ from the "
+                                 "serial run's")
+    emit({"phase": "cram_cli_walls", "wall_s": dict(walls)})
+    return launches
+
+
 def phase_sharded_kernels(device="cuda"):
     """sharded_pairhmm_scores over [cuda:0, cuda:0] and over every visible
     card, at the bench shape and at a ragged B: bit-equal to the unsharded
@@ -1747,6 +1928,10 @@ def main() -> int:
                 cli_input, cli_tmp)
         with timed("shard_cli"):
             shard_launches = phase_shard_cli(cli_input, cli_tmp)
+        with timed("csr_tools_cli"):
+            csr_launches, csr_errs = phase_csr_tools_cli(cli_input, cli_tmp)
+        with timed("cram_cli"):
+            cram_launches = phase_cram_cli(cli_input, cli_tmp)
     finally:
         shutil.rmtree(cli_tmp, ignore_errors=True)
     with timed("sharded_kernels"):
@@ -1769,16 +1954,24 @@ def main() -> int:
                "pairhmm_lanes": "octopus_tpu_torch/csrc/pairhmm_lanes.cu",
                "pairhmm_cost": "octopus_tpu_torch/csrc/pairhmm_cost.cu"}
     kept_errs = {"pairhmm": [main_path_err, cli_errs["pairhmm"],
-                             deferred_err, cancer_errs["pairhmm"],
+                             deferred_err, csr_errs["pairhmm"],
+                             cancer_errs["pairhmm"],
                              *(err for _, err in multi.values())],
-                 "pairhmm_lanes": [cli_errs["pairhmm_lanes"]],
+                 "pairhmm_lanes": [cli_errs["pairhmm_lanes"],
+                                   csr_errs["pairhmm_lanes"]],
                  "pairhmm_cost": []}
     # kernel #1 from the pool's parent (every pool_cli run and the deferred
     # run) and from the two shard_cli processes
     pool_paths = {"pool_cli": pool_launches,
                   "pool_cli_deferred": deferred_launches,
                   "shard_cli": shard_launches}
-    launches = {k: cli_launches.get(k, 0) for k in KERNELS}
+    # kernels #1 and #3 from the CSR tools' gate-0 runs, #1 from the CRAM
+    # runs (default gate)
+    tool_paths = {k: {"csr_tools_cli": csr_launches.get(k, 0),
+                      "cram_cli": cram_launches if k == "pairhmm" else 0}
+                  for k in KERNELS}
+    launches = {k: cli_launches.get(k, 0) + sum(tool_paths[k].values())
+                for k in KERNELS}
     launches["pairhmm"] += (cancer_launches + sum(n for n, _ in multi.values())
                             + sum(pool_paths.values()))
     table = []
@@ -1790,14 +1983,16 @@ def main() -> int:
             "route": "cuda",
             "source": sources[kernel],
             "replaces": REPLACES[kernel],
-            # the gate-0 runs of the individual, cancer, population and
-            # trio CLI paths through this kernel; the cost kernel is on no
+            # the gate-0 runs of the individual, CSR tools, cancer,
+            # population and trio CLI paths through this kernel, the pool's
+            # parent, the shards and the CRAM runs; the cost kernel is on no
             # path (as Pallas v2 is in the reference)
             "launches": launches[kernel],
             "launches_by_path": {
                 "cli": cli_launches.get(kernel, 0),
                 **{k: n if kernel == "pairhmm" else 0
                    for k, n in pool_paths.items()},
+                **tool_paths[kernel],
                 "cancer_cli": cancer_launches if kernel == "pairhmm" else 0,
                 **{f"{k}_cli": n if kernel == "pairhmm" else 0
                    for k, (n, _) in multi.items()}},

@@ -2,7 +2,7 @@
 
 Option surface follows the reference CLI (src/config/option_parser.cpp /
 website/docs/cli.md); see octopus_tpu_torch.config.options for the full
-flag set, the --device option and the options this port refuses.
+flag set and the --device option.
 
 Error handling mirrors src/main.cpp:27-41 + src/logging/error_handler.cpp:
 every structured error prints a three-part where/why/help message; unknown
@@ -48,6 +48,9 @@ def main(argv: list[str] | None = None) -> int:
     init_logging(debug=bool(args.debug), trace=bool(args.trace),
                  log_file=args.trace or args.debug)
     try:
+        if getattr(args, "filter_vcf", None):
+            from .csr_run import run_filter_vcf
+            return run_filter_vcf(args)
         from .run import run_calling
         return run_calling(args)
     except OctopusError as e:

@@ -7,11 +7,10 @@ groups, and defaults follow the reference CLI (src/config/option_parser.cpp,
 website/docs/cli.md) so users can carry commands across.
 
 A handful of reference options have no backend; they are declared (so
-command lines parse) and refused at collation (`check_rejected`). The
-options of features this port does not run yet are declared too and refused
-by `check_unported`, naming their ROADMAP.md item. Options whose semantics
-the design satisfies by construction (e.g. --use-wide-hmm-scores: the
-kernels always carry 32-bit scores) are accepted silently.
+command lines parse) and refused at collation (`check_rejected`). Options
+whose semantics the design satisfies by construction (e.g.
+--use-wide-hmm-scores: the kernels always carry 32-bit scores) are accepted
+silently.
 
 `--device` picks where the pair-HMM, the genotype reductions and the VB
 engines run (the port's counterpart of JAX_PLATFORMS for the reference CLI);
@@ -353,32 +352,14 @@ def check_rejected(args) -> None:
                 where="options", help=help_)
 
 
-# options of features this port does not run yet: option -> (what it asks
-# for, its ROADMAP.md Queue 1 item). Each is refused when set, never ignored.
-UNPORTED = {
-    "bamout": ("--bamout (the evidence BAM)", "Remaining callers and tools"),
-    "filter_vcf": ("--filter-vcf (standalone CSR)",
-                   "Remaining callers and tools"),
-    "forest_model": ("--forest-model (random-forest CSR)",
-                     "Remaining callers and tools"),
-    "somatic_forest_model": ("--somatic-forest-model (random-forest CSR)",
-                             "Remaining callers and tools"),
-}
-
-
-def check_unported(args) -> None:
-    """Raise NotPortedError for any option asking for a feature this port
-    does not run yet: those in UNPORTED, and training CSR
-    (--disable-call-filtering with --annotations)."""
-    from ..errors import NotPortedError
-    for k, (what, item) in UNPORTED.items():
-        if getattr(args, k, None) not in (None, False):
-            raise NotPortedError(what, item)
-    if getattr(args, "disable_call_filtering", False) and getattr(
-            args, "annotations", None):
-        raise NotPortedError(
-            "--disable-call-filtering with --annotations (training CSR)",
-            "Remaining callers and tools")
+def scoring_config(args, **fields) -> LikelihoodConfig:
+    """The run's LikelihoodConfig: on --device, with the host-DP gate of
+    OCTOPUS_TPU_HOST_HMM_MAX when the user sets it. Read assignment outside
+    the callers (--filter-vcf, --bamout) scores with it."""
+    host_hmm_max = os.environ.get("OCTOPUS_TPU_HOST_HMM_MAX")
+    if host_hmm_max is not None:
+        fields["host_hmm_max"] = int(host_hmm_max)
+    return LikelihoodConfig(device=args.device, **fields)
 
 
 def parse_args_with_config(argv=None):
@@ -526,10 +507,8 @@ def collate(args) -> CollatedComponents:
         fallback_interval_size=max(args.fallback_kmer_gap, 1),
         assemble_all=args.assemble_all,
     )
-    host_hmm_max = os.environ.get("OCTOPUS_TPU_HOST_HMM_MAX")
-    likelihood = LikelihoodConfig(
-        **({} if host_hmm_max is None
-           else {"host_hmm_max": int(host_hmm_max)}),
+    likelihood = scoring_config(
+        args,
         max_indel_error=args.max_indel_errors,
         error_model=args.sequence_error_model,
         use_mapping_quality=not args.dont_model_mapping_quality,

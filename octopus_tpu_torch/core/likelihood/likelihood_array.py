@@ -574,6 +574,11 @@ class HaplotypeLikelihoodArray:
         wcol = np.arange(W)
         flank_rows: list[int] = []
         rev_of_job = is_rev[job_read]
+        # the host DP discounts the band's columns past the haplotype end as
+        # flank, with FlankState(0, 0) when there is no flank state; the
+        # device scorer's rows get the same correction, so that no score
+        # depends on where its job set ran
+        flank = flank_state or FlankState(0, 0)
         for h in np.unique(job_hap):
             p = penalties[h]
             hl = len(p.codes)
@@ -593,11 +598,10 @@ class HaplotypeLikelihoodArray:
                 pr = np.where(rev[:, None], p.snv_prior_rev[idx], p.snv_prior_fwd[idx])
                 mask[hsel] = np.where(over, PAD_CODE, m)
                 prior[hsel] = np.where(over, 0, pr)
-            if flank_state is not None and cfg.use_flank_state:
-                in_flank = ((job_pos[hsel] < flank_state.lhs_flank + pad)
-                            | (job_pos[hsel] + job_lens[hsel] + pad
-                               > hl - flank_state.rhs_flank))
-                flank_rows.extend(int(k) for k in hsel[in_flank])
+            in_flank = ((job_pos[hsel] < flank.lhs_flank + pad)
+                        | (job_pos[hsel] + job_lens[hsel] + pad
+                           > hl - flank.rhs_flank))
+            flank_rows.extend(int(k) for k in hsel[in_flank])
 
         # small job sets run the native host DP instead of paying a device
         # round trip (launch latency >> the few thousand DP cells; the
@@ -607,7 +611,7 @@ class HaplotypeLikelihoodArray:
             with timers.phase("hmm_host_dp"):
                 corrected = self._flank_corrected_scores(
                     rows, penalties, job_hap, job_read, job_pos, job_lens,
-                    flank_state or FlankState(0, 0), pad, is_rev,
+                    flank, pad, is_rev,
                     tgt.astype(np.int32), quals.astype(np.int32),
                     win, opn, ext, mask, prior, L, W)
             if corrected is not None:
@@ -632,7 +636,7 @@ class HaplotypeLikelihoodArray:
             rows = np.asarray(flank_rows, np.int64)
             corrected = self._flank_corrected_scores(
                 rows, penalties, job_hap, job_read, job_pos, job_lens,
-                flank_state, pad, is_rev, tgt_i, qual_i,
+                flank, pad, is_rev, tgt_i, qual_i,
                 win, opn, ext, mask, prior, L, W)
             if corrected is not None:
                 ln[rows] = -LN10_DIV_10 * corrected.astype(np.float64)
@@ -646,8 +650,8 @@ class HaplotypeLikelihoodArray:
                         snv_mask=(p.snv_mask_rev if rev else p.snv_mask_fwd),
                         snv_prior=(p.snv_prior_rev if rev else p.snv_prior_fwd),
                         nuc_prior=cfg.nuc_prior,
-                        lhs_flank=flank_state.lhs_flank,
-                        rhs_flank=flank_state.rhs_flank,
+                        lhs_flank=flank.lhs_flank,
+                        rhs_flank=flank.rhs_flank,
                     )
                     rl = int(job_lens[k])
                     ln[k] = ph.hmm_evaluate(

@@ -33,6 +33,7 @@ from typing import NamedTuple
 
 import numpy as np
 
+from ..._build import NATIVE as _native
 from ...basics.phred import LN10_DIV_10
 from ...basics.sequence import N
 
@@ -152,15 +153,26 @@ def banded_align(
     """Banded Viterbi with traceback.
 
     Tie-breaking prefers M over I over D (as the reference's label packing
-    does).  Returns window-relative start position and op string.
+    does).  Returns window-relative start position and op string. The host
+    extension's banded_traceback runs the same DP cell for cell when it is
+    built; _banded_align_py is its numpy form.
     """
     R = len(target)
-    D = 2 * pad
     W = R + 2 * pad - 1
     assert len(truth_win) == W
     cm = match_costs(target, quals, truth_win, snv_mask_win, snv_prior_win)
     opn = gap_open_win.astype(np.int32)
     ext = gap_extend_win.astype(np.int32)
+    if _native and R > 0:
+        score, first_pos, ops = _native.banded_traceback(
+            np.ascontiguousarray(cm, np.int32), np.ascontiguousarray(opn),
+            np.ascontiguousarray(ext), R, pad, int(nuc_prior))
+        return Alignment(score, first_pos, ops.decode())
+    return _banded_align_py(cm, opn, ext, R, nuc_prior, pad)
+
+
+def _banded_align_py(cm, opn, ext, R, nuc_prior, pad) -> Alignment:
+    D = 2 * pad
 
     # state tables (R+1, D); backpointers: predecessor state 0=M,1=I,2=D,3=START
     Mt = np.full((R + 1, D), INF, dtype=np.int32)

@@ -116,16 +116,16 @@ def assign_reads_grouped(jobs, config: LikelihoodConfig | None = None,
 
 def realign_read_to_haplotype(batch: ReadBatch, read_idx: int,
                               hap: Haplotype, pad: int = 8,
-                              nuc_prior: int = 2):
+                              nuc_prior: int = 2, penalties=None):
     """(new_ref_begin, new_cigar) for one read realigned via the haplotype.
 
     The read aligns to the haplotype with the banded HMM traceback; the
     haplotype->reference CIGAR lifts coordinates back (read_realigner.cpp
-    realign_to_reference)."""
+    realign_to_reference). `penalties` are the haplotype's indel penalties
+    (haplotype_penalties), for a caller that realigns many reads to it."""
     seq = batch.sequence(read_idx)
     quals = batch.qualities(read_idx)
-    snv_model, indel_model = make_error_models()
-    pen = indel_model.set_penalties(hap.sequence)
+    pen = haplotype_penalties(hap) if penalties is None else penalties
     offset = max(int(batch.begins[read_idx]) - hap.begin, 0)
     aln_offset = max(0, offset - pad)
     W = len(seq) + 2 * pad - 1
@@ -150,6 +150,11 @@ def realign_read_to_haplotype(batch: ReadBatch, read_idx: int,
             ops.append([1, code])
     read_hap_cigar = np.asarray(ops, np.int32).reshape(-1, 2)
     return lift_to_reference(hap, hap_pos, read_hap_cigar)
+
+
+def haplotype_penalties(hap: Haplotype):
+    """The default indel error model's gap penalties along `hap`."""
+    return make_error_models()[1].set_penalties(hap.sequence)
 
 
 def lift_to_reference(hap: Haplotype, hap_pos: int, read_cigar: np.ndarray):

@@ -1559,6 +1559,115 @@ static PyObject* global_align_native(PyObject*, PyObject* args) {
         (Py_ssize_t)(out_ops.size() * sizeof(int32_t)));
 }
 
+// banded_traceback(cm: int32 (R, W), gap_open: int32 (W), gap_extend:
+// int32 (W), R, pad, nuc_prior) -> (score, first_pos, ops bytes)
+// The banded Viterbi with traceback of core/likelihood/pairhmm_ref.py's
+// banded_align on its match-cost matrix, cell for cell: the same parity
+// quirk of row 0, the same tie-breaking (M over I over D, gap open over
+// extend) and the same op string ('M', 'I', 'D', start to end).
+static PyObject* banded_traceback(PyObject*, PyObject* args) {
+    Py_buffer cm_b, opn_b, ext_b;
+    int R, pad, nuc_prior;
+    if (!PyArg_ParseTuple(args, "y*y*y*iii", &cm_b, &opn_b, &ext_b, &R, &pad,
+                          &nuc_prior))
+        return nullptr;
+    const int D = 2 * pad;
+    const int64_t W = (int64_t)R + 2 * pad - 1;
+    if (R < 1 || pad < 1 || cm_b.len != (Py_ssize_t)(R * W * 4) ||
+        opn_b.len != (Py_ssize_t)(W * 4) || ext_b.len != (Py_ssize_t)(W * 4)) {
+        PyBuffer_Release(&cm_b); PyBuffer_Release(&opn_b);
+        PyBuffer_Release(&ext_b);
+        PyErr_SetString(PyExc_ValueError, "banded_traceback: bad shapes");
+        return nullptr;
+    }
+    const int32_t* cm = (const int32_t*)cm_b.buf;
+    const int32_t* opn = (const int32_t*)opn_b.buf;
+    const int32_t* ext = (const int32_t*)ext_b.buf;
+    const int32_t INF = 1 << 29;
+    int32_t score = 0;
+    int first_pos = 0;
+    std::string ops;
+    Py_BEGIN_ALLOW_THREADS
+    const int64_t n = (int64_t)(R + 1) * D;
+    std::vector<int32_t> Mt(n, INF), It(n, INF), Dt(n, INF);
+    std::vector<int8_t> Mb(n, 0), Ib(n, 0), Db(n, 0);
+    std::vector<int32_t> m0_gap(D);
+    for (int d = 0; d < D; ++d) {
+        Mt[d] = 0;
+        Mb[d] = 3;
+        // gap ops may only start from odd offsets (see banded_score)
+        m0_gap[d] = (d % 2 == 1) ? 0 : INF;
+    }
+    for (int d = 1; d < D; ++d) {
+        const int32_t via_open = m0_gap[d - 1] + opn[d - 1];
+        const int32_t via_ext = Dt[d - 1] + ext[d - 1];
+        if (via_open <= via_ext) { Dt[d] = via_open; Db[d] = 0; }
+        else { Dt[d] = via_ext; Db[d] = 2; }
+    }
+    for (int y = 1; y <= R; ++y) {
+        const int32_t* gap_row = y == 1 ? m0_gap.data() : &Mt[(y - 1) * D];
+        const int64_t row = (int64_t)y * D, prev = row - D;
+        for (int d = 0; d < D; ++d) {
+            const int64_t x = y - 1 + d;
+            // match: the first of the smallest of (M, I, D), as np.argmin
+            int k = 0;
+            int32_t best = Mt[prev + d];
+            if (It[prev + d] < best) { best = It[prev + d]; k = 1; }
+            if (Dt[prev + d] < best) { best = Dt[prev + d]; k = 2; }
+            Mt[row + d] = cm[(int64_t)(y - 1) * W + x] + best;
+            Mb[row + d] = (int8_t)k;
+            if (d + 1 < D) {
+                const int32_t via_open = gap_row[d + 1] + opn[x];
+                const int32_t via_ext = It[prev + d + 1] + ext[x];
+                if (via_open <= via_ext) {
+                    It[row + d] = nuc_prior + via_open; Ib[row + d] = 0;
+                } else {
+                    It[row + d] = nuc_prior + via_ext; Ib[row + d] = 1;
+                }
+            }
+            if (d > 0) {
+                const int64_t xd = y + d - 1;
+                const int32_t c0 = Mt[row + d - 1] + opn[xd];
+                const int32_t c1 = It[row + d - 1] + opn[xd];
+                const int32_t c2 = Dt[row + d - 1] + ext[xd];
+                int kd = 0;
+                int32_t bd = c0;
+                if (c1 < bd) { bd = c1; kd = 1; }
+                if (c2 < bd) { bd = c2; kd = 2; }
+                Dt[row + d] = bd;
+                Db[row + d] = (int8_t)kd;
+            }
+        }
+    }
+    // the first smallest of the last row's (M, I, D) cells, state-major
+    const int64_t last = (int64_t)R * D;
+    int state = 0, d = 0;
+    score = Mt[last];
+    const std::vector<int32_t>* tables[3] = {&Mt, &It, &Dt};
+    for (int s = 0; s < 3; ++s)
+        for (int dd = 0; dd < D; ++dd)
+            if ((*tables[s])[last + dd] < score) {
+                score = (*tables[s])[last + dd]; state = s; d = dd;
+            }
+    int y = R;
+    while (!(y == 0 && state == 0)) {
+        const int64_t at = (int64_t)y * D + d;
+        if (state == 0) {
+            state = Mb[at]; ops.push_back('M'); --y;
+        } else if (state == 1) {
+            state = Ib[at]; ops.push_back('I'); --y; ++d;
+        } else {
+            state = Db[at]; ops.push_back('D'); --d;
+        }
+    }
+    std::reverse(ops.begin(), ops.end());
+    first_pos = d;
+    Py_END_ALLOW_THREADS
+    PyBuffer_Release(&cm_b); PyBuffer_Release(&opn_b); PyBuffer_Release(&ext_b);
+    return Py_BuildValue("iiy#", (int)score, first_pos, ops.data(),
+                         (Py_ssize_t)ops.size());
+}
+
 // count_runs(mask: int16 buffer, max_gap) -> int32 bytes
 // Mirrors octopus_tpu.core.likelihood.error_models._count_runs (which in
 // turn mirrors count_runs in repeat_based_snv_error_model.cpp): for each
@@ -2154,6 +2263,8 @@ static PyMethodDef methods[] = {
      "Repeat-run lengths ending at each position -> int32-le bytes."},
     {"decode_bam_records", decode_bam_records, METH_VARARGS,
      "Full BAM record decode for one region -> tuple of flat field buffers."},
+    {"banded_traceback", banded_traceback, METH_VARARGS,
+     "Banded Viterbi with traceback -> (score, first_pos, ops bytes)."},
     {"global_align", global_align_native, METH_VARARGS,
      "Affine-gap global alignment -> int32-le (length, op) pairs."},
     {"scan_cigar_reads", scan_cigar_reads, METH_VARARGS,

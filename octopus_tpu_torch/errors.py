@@ -77,22 +77,6 @@ class ProgramError(OctopusError):
 # concrete user errors
 # ---------------------------------------------------------------------------
 
-class NotPortedError(UserError):
-    """A feature of the reference package that this port does not run yet.
-
-    Named by its ROADMAP.md item, so that a run never silently drops an
-    option the user asked for."""
-
-    def __init__(self, feature: str, roadmap_item: str, *,
-                 where: str = "options"):
-        super().__init__(
-            f"{feature} is not ported to octopus_tpu_torch yet",
-            where=where,
-            help=f"see ROADMAP.md, Queue 1: {roadmap_item}; the reference "
-                 "package's octopus-tpu command runs it")
-        self.feature = feature
-
-
 class HeavyWindowDeferred(Exception):
     """Not an error: a CPU-only pool worker declines a window so the
     card's parent runs it (only when the caller config's defer_heavy is
@@ -272,7 +256,7 @@ def format_error(err: OctopusError) -> str:
 
 __all__ = [
     "OctopusError", "UserError", "SystemError_", "ProgramError",
-    "NotPortedError", "MissingFileError", "MissingIndexError", "MalformedFileError",
+    "MissingFileError", "MissingIndexError", "MalformedFileError",
     "UnwritableFileError", "BadRegionError", "ConflictingOptionsError",
     "MissingSampleError", "CallingBug", "HeavyWindowDeferred", "format_error",
 ]

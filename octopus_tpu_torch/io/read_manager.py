@@ -4,8 +4,8 @@ Capability-equivalent to the reference's ReadManager
 (src/io/read/read_manager.{hpp,cpp}): owns the input alignment files with an
 open-file limit (LRU pooling), routes fetches by sample across files, and
 provides find_covered_subregion-style read budgeting for dynamic task sizing
-(read_manager.hpp:90-94).  BAM containers are supported; CRAM input is not
-ported yet and raises NotPortedError.
+(read_manager.hpp:90-94).  BAM and CRAM containers are supported (CRAM via
+io/cram.py; pass `reference=` — CRAM slices normally require it to decode).
 """
 
 from __future__ import annotations
@@ -35,9 +35,8 @@ class ReadManager:
 
     def _open_file(self, path: str):
         if path.endswith(".cram"):
-            from ..errors import NotPortedError
-            raise NotPortedError(f"CRAM input ({path})", "CRAM input",
-                                 where="ReadManager")
+            from .cram import CramFile
+            return CramFile(path, reference=self.reference)
         return BamFile(path)
 
     @staticmethod

@@ -12,16 +12,15 @@ Orchestration design (octopus.cpp:467-529 and :1226-1342):
 
 This port runs all six callers: individual, population (the default for
 several samples), trio, cancer (tumour with or without a normal),
-polyclone and cell, with inline threshold CSR; its pair-HMM, genotype
-reductions and VB engines run on `--device` (default cuda). Windows run
-serially, on a process pool (`--threads N`: CPU-only workers, the parent
-keeps the card and runs the dense windows they hand back), or on a thread
-pool (`--threads N --thread-workers`). Several processes or hosts share a
+polyclone and cell, from BAM or CRAM input, with inline threshold, forest
+or training CSR, and the evidence BAM (--bamout) after the merge; its
+pair-HMM, genotype reductions and VB engines run on `--device` (default
+cuda). Windows run serially, on a process pool (`--threads N`: CPU-only
+workers, the parent keeps the card and runs the dense windows they hand
+back), or on a thread pool (`--threads N --thread-workers`). Several processes or hosts share a
 run through `--shard-index/--num-shards` and `--work-queue`; the
 multi-host environment (OCTOPUS_TPU_COORDINATOR, OCTOPUS_TPU_DISTRIBUTED)
-starts torch.distributed. What it does not run yet raises NotPortedError
-when asked for (config.options.check_unported): the forest and training
-CSR, --bamout, --filter-vcf and CRAM input.
+starts torch.distributed.
 """
 
 from __future__ import annotations
@@ -355,8 +354,16 @@ def _maybe_init_distributed() -> bool:
 
 
 def run_calling(args) -> int:
-    from .config.options import check_unported
-    check_unported(args)
+    if getattr(args, "bamout", None) and str(args.bamout).endswith(".cram"):
+        # fail BEFORE calling: the evidence realigner writes BAM + BAI, and
+        # BAM bytes behind a .cram name would corrupt downstream tooling
+        from .errors import UserError
+        raise UserError(
+            "--bamout CRAM output is not supported (the realigner's HP/PS/LK "
+            "evidence tags have no CRAM aux encoding in this build)",
+            where="bamout",
+            help="use a .bam path for --bamout; CRAM is supported for "
+                 "read INPUT (-I reads.cram)")
     started = _maybe_init_distributed()
     try:
         return _run_calling(args)
@@ -530,9 +537,24 @@ def _setup_components(args):
     else:
         pipe = ReadPipe()
     if getattr(args, "disable_call_filtering", False):
-        # without --annotations, no CSR work at all (with them, the
-        # training filter, which check_unported refuses)
-        csr = None
+        # training mode (option_collation.cpp:2306-2309): with --annotations
+        # a PassingVariantCallFilter still computes + emits the measures and
+        # marks every call PASS; without annotations, no CSR work at all
+        if components and components.annotations:
+            from .core.csr.training import PassingFilter
+            csr = PassingFilter(tuple(components.annotations))
+        else:
+            csr = None
+    elif getattr(args, "forest_model", None):
+        # forest CSR replaces threshold classification
+        # (RandomForestFilterFactory, option_collation.cpp)
+        from .core.csr.random_forest import ForestCsr
+        csr = ForestCsr(args.forest_model,
+                        getattr(args, "somatic_forest_model", None),
+                        getattr(args, "min_forest_quality", 3.0),
+                        use_somatic_forest_for_refcalls=not getattr(
+                            args, "use_germline_forest_for_somatic_normals",
+                            False))
     elif components:
         csr = ThresholdFilter(components.filter_expression,
                               components.somatic_filter_expression,
@@ -549,6 +571,9 @@ def _setup_components(args):
     if csr is not None:
         for fid in csr.filter_ids():
             header.add_filter(fid, f"Threshold filter {fid}")
+        if hasattr(csr, "classify_q"):
+            header.add_format("RFGQ", "1", "Float",
+                              "Random forest call quality")
     for name in annotations:
         header.add_info(name, ".", "String", f"CSR measure {name}")
     refcall_mode = getattr(args, "refcall", None)
@@ -823,6 +848,17 @@ def _run_calling_main(args, components, reference, bams, samples,
         index_vcf(out_path)
     if getattr(args, "data_profile", None):
         _run_data_profile(args, reference, bams, regions, out_path)
+    if getattr(args, "bamout", None):
+        # evidence-BAM pass over the final calls (octopus.cpp:1671-1708);
+        # its read assignment scores on --device with the run's gate
+        from .config.options import scoring_config
+        from .core.tools.bam_realigner import run_bamout
+        stats = run_bamout(out_path, reference, bams, samples, args.bamout,
+                           bamout_type=getattr(args, "bamout_type", "MINI"),
+                           scoring=scoring_config(args))
+        print(f"octopus-tpu-torch: bamout {args.bamout}: "
+              f"{stats['realigned']} realigned, "
+              f"{stats['passthrough']} passthrough reads", file=sys.stderr)
     if args.output is None:
         sys.stdout.write(open(out_path).read())
         os.unlink(out_path)
@@ -1019,10 +1055,21 @@ def _call_window(window, reference, bams, samples, pipe, csr, caller_cache,
                     reads_by_sample=facet_reads,
                     facets=facet_of_call.get(id(call)),
                     phase_length=phase_len_of_call.get(id(call)))
-            failed = csr.classify(measures,
-                                  somatic=bool(call.info.get("SOMATIC")),
-                                  denovo=bool(call.info.get("DENOVO")))
+            rfgq = None
+            if hasattr(csr, "classify_q"):
+                failed, rfgq = csr.classify_q(
+                    measures, somatic=bool(call.info.get("SOMATIC")),
+                    denovo=bool(call.info.get("DENOVO")))
+            else:
+                failed = csr.classify(measures,
+                                      somatic=bool(call.info.get("SOMATIC")),
+                                      denovo=bool(call.info.get("DENOVO")))
             record.filters = failed if failed else ["PASS"]
+            if rfgq is not None:
+                if "RFGQ" not in record.format_keys:
+                    record.format_keys.append("RFGQ")
+                for sv in record.sample_values:
+                    sv["RFGQ"] = round(rfgq, 2)
             for name in annotations:
                 if name in measures and name not in record.info:
                     v = measures[name]

@@ -1,7 +1,9 @@
 """The port stands alone: it imports neither JAX nor the reference package.
 
 An AST scan covers every module of octopus_tpu_torch and chip_smoke.py; a
-subprocess runs a small port call and then inspects sys.modules.
+subprocess runs a small port call, loads the forest, training and
+clustering CSR, the standalone CSR, the evidence-BAM realigner and the CRAM
+modules, and then inspects sys.modules.
 """
 
 import ast
@@ -34,7 +36,15 @@ def test_no_forbidden_imports():
             bad += [f"{path.relative_to(ROOT)}: {m}" for m in names
                     if _forbidden(m)]
     assert len(PORT_FILES) > 40
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {f"octopus_tpu_torch/{m}.py" for m in NEW_MODULES} <= names
     assert not bad, bad
+
+
+# the modules of the last slice, which the probe also loads
+NEW_MODULES = ("core/csr/random_forest", "core/csr/training",
+               "core/csr/clustering", "csr_run", "core/tools/bam_realigner",
+               "io/cram", "io/cram_writer", "io/rans")
 
 
 PROBE = r"""
@@ -58,6 +68,16 @@ z = np.zeros((2, 8), np.int32)
 w = np.zeros((2, 23), np.int32)
 pairhmm_scores(z, z, w, w, w, w, w, pad=8, device="cpu")
 assert lines, "no calls"
+import importlib
+for m in ("core.csr.random_forest", "core.csr.training", "core.csr.clustering",
+          "csr_run", "core.tools.bam_realigner", "io.cram", "io.cram_writer",
+          "io.rans"):
+    importlib.import_module("octopus_tpu_torch." + m)
+from octopus_tpu_torch.core.csr.random_forest import Forest
+from octopus_tpu_torch.io import rans
+forest = Forest.load("resources/forests/germline.npz")
+assert forest.predict_proba(np.zeros((2, len(forest.measures)))).shape == (2,)
+assert rans.uncompress(rans.compress(b"ACGT" * 50, 1)) == b"ACGT" * 50
 leaked = sorted(m for m in sys.modules
                 if m in ("jax", "jaxlib") or m.startswith(("jax.", "jaxlib."))
                 or m == "octopus_tpu" or m.startswith("octopus_tpu."))

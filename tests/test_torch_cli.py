@@ -9,6 +9,7 @@ environment and leaving them there; the port reads the first, so both are
 cleared before every port run.
 """
 
+import filecmp
 import os
 import subprocess
 import sys
@@ -133,24 +134,56 @@ def test_port_cli_process_loads_no_jax_and_no_reference_module(sample):
     assert split_vcf(out)[1][1:]
 
 
+FOREST = str(ROOT / "resources" / "forests" / "germline.npz")
+# the flags the port once refused as not ported; {calls} is the reference
+# CLI's VCF, {who} the package that runs
 UNPORTED = {
-    "bamout": ["--bamout", "evidence.bam"],
-    "filter_vcf": ["--filter-vcf", "calls.vcf"],
-    "forest_model": ["--forest-model", "forest.npz"],
-    "filter_vcf_threads": ["--filter-vcf", "calls.vcf", "--threads", "4"],
+    "bamout": ["--bamout", "{who}_evidence.bam"],
+    "filter_vcf": ["--filter-vcf", "{calls}"],
+    "forest_model": ["--forest-model", FOREST],
+    "filter_vcf_threads": ["--filter-vcf", "{calls}", "--threads", "4"],
     "training_csr": ["--disable-call-filtering", "--annotations", "AD"],
 }
 
 
-@pytest.mark.parametrize("flag", sorted(UNPORTED))
-def test_unported_flag_raises_user_error(sample, flag, capsys):
+def run_reference(sample, name, *extra):
+    """The reference CLI with the variables it pins restored afterwards;
+    returns the output path."""
     d, fa, bam, _ = sample
-    out = str(d / f"unported_{flag}.vcf")
-    rc = cli.main(["-R", fa, "-I", bam, "-o", out, "--device", "cpu",
-                   *UNPORTED[flag]])
-    assert rc == 2
-    assert "not ported" in " ".join(capsys.readouterr().err.split())
-    assert not os.path.exists(out)
+    out = str(d / name)
+    saved = {k: os.environ.get(k) for k in PINNED}
+    try:
+        assert ref_cli.main(["-R", fa, "-I", bam, "-o", out, *extra]) == 0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return out
+
+
+@pytest.mark.parametrize("flag", sorted(UNPORTED))
+def test_unported_flag_raises_user_error(sample, reference_vcf, flag,
+                                         monkeypatch):
+    """The flags the port once refused (exit 2, "not ported") now run: exit
+    0 and the reference CLI's output on the same input, the evidence BAM
+    byte for byte."""
+    d = sample[0]
+
+    def argv(who):
+        return [a.format(who=str(d / f"{flag}_{who}"), calls=reference_vcf)
+                for a in UNPORTED[flag]]
+
+    want = run_reference(sample, f"{flag}_reference.vcf", *argv("reference"))
+    got = run_port(sample, monkeypatch, f"{flag}_port.vcf", *argv("port"))
+    assert split_vcf(got) == split_vcf(want)
+    assert len(split_vcf(got)[1]) > 3
+    if flag == "bamout":
+        for ext in ("", ".bai"):
+            assert filecmp.cmp(str(d / f"{flag}_port_evidence.bam") + ext,
+                               str(d / f"{flag}_reference_evidence.bam") + ext,
+                               shallow=False)
 
 
 def test_trio_caller_on_one_sample_raises_user_error(sample, capsys):
@@ -187,12 +220,21 @@ def test_population_caller_on_one_sample_writes_the_reference_records(
 
 
 def test_cram_input_raises_user_error(sample, capsys):
+    """CRAM input is ported (tests/test_torch_cram.py calls a CRAM): a
+    missing .cram is the user error, as in the reference CLI, and a
+    truncated one fails the run with the reference CLI's exit code."""
     d, fa, _, _ = sample
+    missing = str(d / "missing.cram")
+    rc = cli.main(["-R", fa, "-I", missing, "-o", str(d / "c.vcf"),
+                   "--device", "cpu"])
+    err = " ".join(capsys.readouterr().err.split())
+    assert rc == 2 and "user error" in err and missing in err
     cram = d / "reads.cram"
     cram.write_bytes(b"CRAM")
-    rc = cli.main(["-R", fa, "-I", str(cram), "-o", str(d / "c.vcf"),
-                   "--device", "cpu"])
-    assert rc == 2 and "CRAM input" in " ".join(capsys.readouterr().err.split())
+    argv = ["-R", fa, "-I", str(cram), "-o", str(d / "c.vcf")]
+    want = ref_cli.main(argv)
+    assert cli.main([*argv, "--device", "cpu"]) == want != 0
+    assert not os.path.exists(d / "c.vcf")
 
 
 def test_thread_pool_writes_the_serial_records(sample, monkeypatch):

@@ -391,3 +391,44 @@ def test_cancer_cli_on_cuda_writes_the_cpu_records(cuda, tmp_path,
     assert vb.COUNTS.device > 0 and vb.COUNTS.host == 0
     assert lines["cuda"] == lines["cpu"]
     assert sum("SOMATIC" in line for line in lines["cpu"]) >= len(somatic) - 1
+
+
+CSR_TOOLS = {
+    "filter_vcf": ["--filter-vcf", "{calls}"],
+    "filter_vcf_forest": ["--filter-vcf", "{calls}", "--forest-model",
+                          "resources/forests/germline.npz"],
+    "bamout": ["--bamout", "{bamout}"],
+}
+
+
+@pytest.mark.parametrize("unrolled", [False, True])
+@pytest.mark.parametrize("tool", sorted(CSR_TOOLS))
+def test_csr_tools_on_cuda_write_the_cpu_outputs(cuda, tmp_path, monkeypatch,
+                                                 tool, unrolled):
+    """--filter-vcf and --bamout at gate 0 through kernel #1 (or #3) on the
+    card write the CPU run's records and evidence BAM byte for byte."""
+    from octopus_tpu_torch.cli import main
+    from octopus_tpu_torch.core.likelihood import likelihood_array as la
+    from octopus_tpu_torch.utils.synthetic import simulate_diploid
+    fa, bam, _, _ = simulate_diploid(str(tmp_path), kb=5, seed=5,
+                                     spacing=(150, 450))
+    calls = str(tmp_path / "calls.vcf")
+    assert main(["-R", fa, "-I", bam, "-o", calls, "--device", "cpu",
+                 "--disable-call-filtering"]) == 0
+    monkeypatch.setenv("OCTOPUS_TPU_HOST_HMM_MAX", "0")
+    if unrolled:
+        monkeypatch.setenv("OCTOPUS_TPU_UNROLLED_HMM", "1")
+    kernel = "pairhmm_lanes" if unrolled else "pairhmm"
+    outputs = {}
+    for device in ("cpu", "cuda"):
+        out, bamout = tmp_path / f"{device}.vcf", tmp_path / f"{device}.bam"
+        la.ROUTING.reset()
+        assert main(["-R", fa, "-I", bam, "-o", str(out), "--device", device,
+                     *(a.format(calls=calls, bamout=bamout)
+                       for a in CSR_TOOLS[tool])]) == 0
+        outputs[device] = ([line for line in out.read_text().splitlines()
+                            if not line.startswith("##")],
+                           bamout.read_bytes() if tool == "bamout" else b"")
+    assert la.ROUTING.job_sets[("assignment", kernel)] > 0
+    assert outputs["cuda"] == outputs["cpu"]
+    assert len(outputs["cpu"][0]) > 3

@@ -18,8 +18,8 @@ from octopus_tpu.io import bam_writer as ref_bam_writer
 from octopus_tpu.io import tabix as ref_tabix
 from octopus_tpu.readpipe import pipe as ref_pipe
 from octopus_tpu.utils import synthetic as ref_synthetic
-from octopus_tpu_torch.errors import NotPortedError
-from octopus_tpu_torch.io import bam, bam_writer, tabix
+from octopus_tpu_torch.io import bam, bam_writer, cram_writer, tabix
+from octopus_tpu_torch.io.fasta import IndexedFasta, ReferenceGenome
 from octopus_tpu_torch.io.read_manager import ReadManager
 from octopus_tpu_torch.io.vcf import VcfHeader, VcfRecord, VcfWriter
 from octopus_tpu_torch.readpipe import pipe
@@ -81,16 +81,27 @@ def test_bam_fetch_equals_the_reference(sample, region):
 
 
 def test_read_manager_fetches_and_refuses_cram(sample, tmp_path):
-    _, bam_path, _, n = sample
+    """ReadManager reads the BAM, and since CRAM input is ported no longer
+    refuses a .cram: the same reads rewritten as a CRAM by the port's
+    writer fetch as the BAM's."""
+    fa, bam_path, _, n = sample
     manager = ReadManager([bam_path])
     assert manager.samples() == ["SIM"]
     want = ref_bam.BamFile(bam_path).fetch("chr1", 0, n)["SIM"]
     assert_batches_equal(manager.fetch("chr1", 0, n)["SIM"],
                          want.sorted_by_begin())
-    cram = tmp_path / "reads.cram"
-    cram.write_bytes(b"CRAM")
-    with pytest.raises(NotPortedError, match="CRAM input"):
-        ReadManager([str(cram)])
+    reference = ReferenceGenome(IndexedFasta(fa))
+    cram = str(tmp_path / "reads.cram")
+    with cram_writer.CramWriter(cram, ["chr1"], [n], samples=["SIM"],
+                                reference=reference) as w:
+        w.write_batch(want, sample="SIM")
+    got = ReadManager([cram], reference=reference).fetch("chr1", 0, n)["SIM"]
+    assert len(got) == len(want)
+    for field in ("begins", "ends", "mapq", "flags", "seq", "quals",
+                  "seq_offsets", "cigar_ops"):
+        np.testing.assert_array_equal(getattr(got, field),
+                                      getattr(want.sorted_by_begin(), field),
+                                      err_msg=field)
 
 
 PIPE_CONFIGS = {

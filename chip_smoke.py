@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Fifteen phases, each printing JSON lines:
+Sixteen phases, each printing JSON lines:
 
 1. build: g++ builds the host extension and nvcc builds the three CUDA
    kernels (csrc/pairhmm.cu, pairhmm_lanes.cu, pairhmm_cost.cu), all from
@@ -27,6 +27,16 @@ Fifteen phases, each printing JSON lines:
    against the throughput ones (split chain, half lane width, fewer threads
    a pair), which sets the wrapper's WAVE_BELOW and COST_THREADS_BY_B
    (variant_sweep);
+2b. kernel_experiments: the ports of the five Pallas experiments in
+   experiments/ (octopus_tpu_torch/kernel_experiments/, csrc/exp_*.cu,
+   built in phase 1 beside the others), on no product path, at their bench
+   shape (65,536 pairs, R = 150, band 8, their random tracks; i16 at
+   (16, 1,048,576) int16): every K/blk/pack variant of each experiment's
+   __main__ against its plain version and the four scorers against kernel
+   #1 on the same tracks, error 0; kernel and wrapper times, #1's beside
+   them, plain times, bounds, registers and spills, and the i16 loop's
+   SASS (cuobjdump): packed .S16x2 instructions and instructions an
+   element a round;
 3. gate_sweep: job sets of 1 to 1024 pairs (R = 160, band 8) scored by the
    host DP and by the card call with its copies; the crossover;
 4. main_path: a simulated 30x diploid sample is called in memory through
@@ -185,7 +195,24 @@ def card_line() -> str:
 TEMPLATE_PARAMS = {"pairhmm": ("D", "T"),
                    "pairhmm_wave": ("D", "W"),
                    "pairhmm_lanes": ("D", "LW"),
-                   "pairhmm_cost": ("D", "T")}
+                   "pairhmm_cost": ("D", "T"),
+                   # the kernel experiments (phase kernel_experiments): K
+                   # pairs a thread, L lanes a block, the row schedule
+                   "exp_dual_chain": ("K", "L", "S"),
+                   "exp_v13": ("K", "L", "S"),
+                   "exp_v10": ("K", "L"),
+                   "exp_v11": ("BLK",),
+                   "exp_i16": ("PACK",)}
+
+
+def template_key(function: str, kernel: str) -> str:
+    """A mangled kernel instantiation's name from its template arguments
+    ("D16_T4", "K4_L32_S0"); "" without template arguments."""
+    m = re.search(r"I((?:L[ib]\d+E)+)E", function)
+    values = re.findall(r"L[ib](\d+)E", m.group(1)) if m else []
+    if "_wave_kernel" in function:
+        kernel += "_wave"
+    return "_".join(f"{k}{v}" for k, v in zip(TEMPLATE_PARAMS[kernel], values))
 
 
 def ptxas_table(log: str, kernel: str) -> dict:
@@ -195,12 +222,7 @@ def ptxas_table(log: str, kernel: str) -> dict:
     current = None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"I((?:L[ib]\d+E)+)E", line)
-            values = re.findall(r"L[ib](\d+)E", m.group(1)) if m else []
-            names = TEMPLATE_PARAMS[kernel]
-            if "_wave_kernel" in line:
-                names = TEMPLATE_PARAMS[kernel + "_wave"]
-            current = "_".join(f"{k}{v}" for k, v in zip(names, values)) or None
+            current = template_key(line, kernel) or None
         elif current and "spill stores" in line:
             parts = line.split()
             ptxas[current] = {"spill_store_bytes": int(parts[4]),
@@ -234,9 +256,13 @@ def smem_table(pb) -> dict:
 def phase_build():
     from octopus_tpu_torch import _build
     from octopus_tpu_torch.core.likelihood import pairhmm_batch as pb
-    with concurrent.futures.ThreadPoolExecutor(1 + len(KERNELS)) as pool:
+    from octopus_tpu_torch.kernel_experiments import _common as xc
+    with concurrent.futures.ThreadPoolExecutor(
+            1 + len(KERNELS) + len(xc.ENTRIES)) as pool:
         jobs = [pool.submit(_build.require_native)]
         jobs += [pool.submit(pb.kernel_library, name) for name in KERNELS]
+        # the kernel experiments' libraries, reported by their own phase
+        jobs += [pool.submit(xc.library, name) for name in xc.ENTRIES]
         for job in jobs:
             job.result()
     ptxas = {n: ptxas_table(_build.BUILDS[n]["log"], n) for n in KERNELS}
@@ -290,19 +316,9 @@ def random_batch(rng, B, R, pad, heavy_indel=False):
 
 
 def cuda_ms(fn, reps=7):
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        torch.cuda.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return statistics.median(times)
+    """Median CUDA-event ms of fn over `reps` runs after a warm-up."""
+    from octopus_tpu_torch.device import cuda_ms as median_ms
+    return median_ms(fn, reps)
 
 
 def stream_ms(fn, n=20):
@@ -613,6 +629,257 @@ def phase_gate_sweep(device="cuda", sizes=GATE_SWEEP_SIZES, reps=7):
     emit({"phase": "gate_sweep", "device": device, "rows": rows,
           "crossover_pairs": crossover})
     return crossover
+
+
+# ---------------------------------------------------------------------------
+# phase: the kernel experiments (off every product path)
+# ---------------------------------------------------------------------------
+
+# experiment library -> the TPU kernel's pl.pallas_call
+EXPERIMENTS = {
+    "exp_dual_chain": "experiments/dual_chain.py:115",
+    "exp_v10": "experiments/v10_kernel.py:135",
+    "exp_v11": "experiments/v11_kernel.py:112",
+    "exp_v13": "experiments/v13_unroll2.py:123",
+    "exp_i16": "experiments/i16_probe.py:35",
+}
+# the variant of each experiment in the kernels line: its experiment's
+# default keyword
+EXP_DEFAULT = {"exp_dual_chain": "K2", "exp_v10": "K4", "exp_v11": "blk1",
+               "exp_v13": "K4x2", "exp_i16": "pack2"}
+# the i16 probe's least int work an element, a fused DPX form counted as
+# one operation as in OPS_PER_CELL: 7 a round (m + a and its min, the min
+# with the shifted m, i + 2, the select, three prefix mins), and once the
+# compare and the final min
+I16_OPS_PER_ROUND = 7
+I16_OPS_ONCE = 2
+I16_SHAPE = (16, 1 << 20)
+
+
+def v10_bytes_bound(B, R, pad):
+    """Least time for v10's kernel to read its ten tracks (2 of R rows, 8
+    of W) once and write the scores, over the memory rate."""
+    W = R + 2 * pad - 1
+    return ((2 * R + 8 * W) * 4 * B + 4 * B) / DRAM_BYTES_PER_S * 1e3
+
+
+def sass_functions(path: str) -> dict:
+    """function name -> [(address, instruction)] from cuobjdump -sass of a
+    built library."""
+    import os
+    from octopus_tpu_torch._build import nvcc_path
+    cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True,
+                          text=True, check=True).stdout
+    out, current = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = out.setdefault(line.split("Function :")[1].strip(), [])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if current is not None and m:
+            current.append((int(m.group(1), 16), m.group(2).strip()))
+    return out
+
+
+def sass_loop(body) -> dict:
+    """The innermost backward-branch loop of one function's SASS: its
+    instructions, mnemonic counts, and how many are .S16x2."""
+    loops = []
+    for addr, text in body:
+        b = re.search(r"\bBRA\s+(0x[0-9a-f]+)", text)
+        if b and int(b.group(1), 16) < addr:
+            loops.append((int(b.group(1), 16), addr))
+    if not loops:
+        raise AssertionError("no loop in the SASS")
+    lo, hi = min(loops, key=lambda r: r[1] - r[0])
+    ops = [t.split()[1] if t.startswith("@") else t.split()[0]
+           for a, t in body if lo <= a <= hi]
+    return {"instructions": len(ops),
+            "s16x2": sum("S16x2" in o for o in ops),
+            "mnemonics": dict(collections.Counter(ops).most_common())}
+
+
+def i16_sass(functions: dict) -> dict:
+    """Per pack, the 50-round loop's SASS: instructions, .S16x2 ones, and
+    instructions an element a round (16 rows x pack columns a thread)."""
+    out = {}
+    for name, body in functions.items():
+        key = template_key(name, "exp_i16")
+        loop = sass_loop(body)
+        loop["per_element_round"] = loop["instructions"] / (
+            16 * int(key.lstrip("PACK")))
+        out[key.lower()] = loop
+    return out
+
+
+def phase_kernel_experiments(seed=SEED):
+    """The five kernel experiments at their bench shape (65,536 pairs, R =
+    150, band 8; i16 at (16, 1,048,576)): every variant of each
+    experiment's __main__ against its plain version and, for the four
+    scorers, against kernel #1 on the same tracks, error 0; kernel and
+    wrapper CUDA-event medians of 7, #1's beside them, plain of 5; the
+    build's registers and spills; the i16 loop's SASS."""
+    import torch
+    from octopus_tpu_torch import _build
+    from octopus_tpu_torch.core.likelihood import pairhmm_batch as pb
+    from octopus_tpu_torch.kernel_experiments import (
+        _common as xc, dual_chain, i16_probe, v10_kernel, v11_kernel,
+        v13_unroll2)
+    for counts in xc.COUNTS.values():
+        counts.reset()
+    B, R, pad, nuc = xc.BENCH_B, xc.R, xc.PAD, pb.DEFAULT_NUC_PRIOR
+    bound_ms, bound_by = pairhmm_bound(B, R, pad)
+    rows = []
+
+    def scorer_variants(t):
+        """library -> {variant: (kernel launch on prepared inputs, wrapper
+        call, plain version)} for kernel-layout CUDA tracks t."""
+        def plain():
+            return xc.plain_v9(t, pad, nuc)
+
+        pre = v11_kernel.v11_pre(t[4])
+        t10 = v10_kernel.v10_tracks(*t, nuc_prior=nuc)
+        out = {"exp_dual_chain": {
+            f"K{K}": (lambda K=K: dual_chain.scores_dual_cuda(*t, K=K),
+                      lambda K=K: dual_chain.scores_dual(*t, K=K), plain)
+            for K in dual_chain.KERNEL_K}}
+        out["exp_v11"] = {
+            f"blk{b}": (lambda b=b: v11_kernel.launch_v11(
+                t, pre, pad=pad, nuc_prior=nuc, blk=b),
+                lambda b=b: v11_kernel.scores_v11(*t, blk=b), plain)
+            for b in v11_kernel.BLK_VARIANTS}
+        # v13's two rows an iteration (x2, its experiment's kernel) and the
+        # same kernel one row an iteration (x1, launched only as a kernel);
+        # K = 6 takes the first 65,280 pairs, the most that 128 * 6 divides
+        out["exp_v13"] = {}
+        for K in v13_unroll2.K_VARIANTS:
+            tk, plain_k = t, plain
+            if B % (xc.LANES * K):
+                tk = [a[:, :B - B % (xc.LANES * K)].contiguous() for a in t]
+
+                def plain_k(tk=tk):
+                    return xc.plain_v9(tk, pad, nuc)
+
+            for two in (True, False):
+                launch = (lambda K=K, two=two, tk=tk: v13_unroll2.launch_v13(
+                    tk, pad=pad, nuc_prior=nuc, K=K, two_rows=two))
+                call = ((lambda K=K, tk=tk: v13_unroll2.scores_v13(*tk, K=K))
+                        if two else launch)
+                out["exp_v13"][f"K{K}x{2 if two else 1}"] = (launch, call,
+                                                             plain_k)
+
+        def v10_plain():
+            return v10_kernel.v10_rows_plain(t10, pad=pad)
+
+        out["exp_v10"] = {
+            f"K{K}": (lambda K=K: v10_kernel.launch_v10(t10, pad=pad, K=K),
+                      lambda K=K: v10_kernel.scores_v10(*t, K=K), v10_plain)
+            for K in v10_kernel.K_VARIANTS}
+        return out
+
+    # dual_chain's bench draws window bases from [0, 4), the others from
+    # [0, 5) (N included)
+    for win_hi, libs in ((4, ("exp_dual_chain",)),
+                         (5, ("exp_v11", "exp_v13", "exp_v10"))):
+        t = xc.bench_inputs(B, win_hi, seed=seed)
+        bm = [a.t().contiguous() for a in t]       # #1's batch-major copies
+        one = pb.pairhmm_scores_cuda(*bm, pad=pad)
+        one_ms = cuda_ms(lambda: pb.launch_kernel(bm, pad=pad))
+        one_call_ms = cuda_ms(lambda: pb.pairhmm_scores_cuda(*bm, pad=pad))
+        plains = {}
+        variants = scorer_variants(t)
+        for lib in libs:
+            for variant, (kernel, wrapper, plain) in variants[lib].items():
+                key = id(plain)
+                if key not in plains:
+                    want = plain()
+                    plains[key] = (want, cuda_ms(plain, reps=5))
+                want, plain_ms = plains[key]
+                got_k, got_w = kernel(), wrapper()
+                torch.cuda.synchronize()
+                err = max(int((g.long() - want.long()).abs().max())
+                          for g in (got_k, got_w))
+                Bv = got_w.shape[0]        # pairs are independent
+                err_one = int((got_w.long() - one[:Bv].long()).abs().max())
+                row = {"kernel": lib, "variant": variant, "B": Bv, "R": R,
+                       "pad": pad, "max_abs_err": err,
+                       "max_abs_err_vs_1": err_one,
+                       "kernel_ms": cuda_ms(kernel),
+                       "wrapper_ms": cuda_ms(wrapper),
+                       "pairhmm_1_kernel_ms": one_ms,
+                       "pairhmm_1_call_ms": one_call_ms,
+                       "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by}
+                row["m_pairs_per_s"] = Bv / row["wrapper_ms"] / 1e3
+                if Bv != B:
+                    row["bound_ms"], row["bound_by"] = pairhmm_bound(Bv, R, pad)
+                if lib == "exp_v10":
+                    row["bytes_bound_ms"] = v10_bytes_bound(B, R, pad)
+                rows.append(row)
+                if err or err_one:
+                    raise AssertionError(f"kernel_experiments: {row}")
+        del t, bm, variants, plains
+        torch.cuda.empty_cache()
+
+    # the i16 probe: the experiment's own input, a wrapping one, the bench
+    a = torch.ones((16, 128), dtype=torch.int16, device="cuda")
+    probe_ok = int(i16_probe.run(a, a * 2)[0, 0]) == 51
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    wide = [torch.randint(-32768, 32767, (16, 4096), generator=gen,
+                          device="cuda", dtype=torch.int16) for _ in range(2)]
+    wide[1][:, ::3] = wide[0][:, ::3]
+    a, b = i16_probe.bench_inputs(I16_SHAPE, seed=seed)
+    elements = a.numel()
+    ops = elements * (I16_OPS_PER_ROUND * i16_probe.ROUNDS + I16_OPS_ONCE)
+    ops_one_ms = ops / INT32_OPS_PER_S * 1e3
+    bytes_ms = 3 * 2 * elements / DRAM_BYTES_PER_S * 1e3
+    want = i16_probe.kern_plain(a, b)
+    want_wide = i16_probe.kern_plain(*wide)
+    plain_ms = cuda_ms(lambda: i16_probe.kern_plain(a, b), reps=5)
+    for pack in i16_probe.PACKS:
+        err = max(int((i16_probe.run_cuda(x, y, pack=pack).int()
+                       - w.int()).abs().max())
+                  for x, y, w in ((a, b, want), (*wide, want_wide)))
+        row = {"kernel": "exp_i16", "variant": f"pack{pack}",
+               "shape": list(I16_SHAPE), "max_abs_err": err,
+               "probe_out_0_0_is_51": probe_ok,
+               "kernel_ms": cuda_ms(lambda: i16_probe.run_cuda(a, b,
+                                                               pack=pack)),
+               "wrapper_ms": cuda_ms(lambda: i16_probe.run(a, b, pack=pack)),
+               "plain_ms": plain_ms,
+               "ops_bound_one_a_lane_ms": ops_one_ms,
+               "ops_bound_two_a_lane_ms": ops_one_ms / 2,
+               "bytes_bound_ms": bytes_ms,
+               "bound_ms": max(ops_one_ms / 2, bytes_ms),
+               "bound_by": "operations" if ops_one_ms / 2 >= bytes_ms
+               else "bytes"}
+        rows.append(row)
+        if err or not probe_ok:
+            raise AssertionError(f"kernel_experiments: {row}")
+    # each instantiation's registers and spills, and its code size in SASS
+    # instructions (16 bytes each), against the instruction caches
+    builds, sass = {}, {}
+    for lib in EXPERIMENTS:
+        sass[lib] = sass_functions(_build.BUILDS[lib]["path"])
+        builds[lib] = {"nvcc_s": _build.BUILDS[lib]["seconds"],
+                       "ptxas": ptxas_table(_build.BUILDS[lib]["log"], lib),
+                       "sass_instructions": {template_key(f, lib): len(body)
+                                             for f, body in sass[lib].items()}}
+    launches = exp_launches()
+    emit({"phase": "kernel_experiments", "rows": rows, "builds": builds,
+          "i16_sass": i16_sass(sass["exp_i16"]), "launches": launches})
+    # from here on the counts are the product paths' (read in main)
+    for counts in xc.COUNTS.values():
+        counts.reset()
+    return rows, launches
+
+
+def exp_launches() -> dict:
+    """library -> this process's launches of each kernel experiment since
+    its counts were last set to 0."""
+    from octopus_tpu_torch.kernel_experiments import _common as xc
+    return {f"exp_{n}": c.launches for n, c in xc.COUNTS.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -1635,9 +1902,12 @@ SHARD_PROBE = r"""
 import json, sys
 from octopus_tpu_torch import cli
 from octopus_tpu_torch.core.likelihood import pairhmm_batch as pb
+from octopus_tpu_torch.kernel_experiments import _common as xc
 rc = cli.main(sys.argv[1:])
 print(json.dumps({"rc": rc, "launches": {k: c.launches
-                                         for k, c in pb.KERNEL_COUNTS.items()}}))
+                                         for k, c in pb.KERNEL_COUNTS.items()},
+                  "exp_launches": {f"exp_{n}": c.launches
+                                   for n, c in xc.COUNTS.items()}}))
 """
 
 
@@ -1645,7 +1915,8 @@ def phase_shard_cli(inputs, tmp, device="cuda"):
     """Two OS processes share the cli phase's BAM through --work-queue
     --num-shards 2 on one card, host-DP gate 0: the last to finish merges,
     and the merged VCF must equal the serial card run's byte for byte; each
-    process must launch kernel #1. Returns the two processes' #1 launches."""
+    process must launch kernel #1. Returns the two processes' #1 launches
+    and their kernel experiments' launches (library -> count)."""
     import os
     out = os.path.join(tmp, "shard_cli.vcf")
     env = {k: v for k, v in os.environ.items() if k not in CLI_ENV_KEYS}
@@ -1678,7 +1949,8 @@ def phase_shard_cli(inputs, tmp, device="cuda"):
                              "serial card run")
     if device == "cuda" and not all(launches):
         raise AssertionError(f"shard_cli: #1 launches per process {launches}")
-    return sum(launches)
+    return sum(launches), {k: sum(r["exp_launches"][k] for r in results)
+                           for k in results[0]["exp_launches"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1909,6 +2181,8 @@ def main() -> int:
     with timed("kernels"):
         kernel_rows = phase_kernels()
         variant_sweep(kernel_rows)
+    with timed("kernel_experiments"):
+        exp_rows, exp_phase = phase_kernel_experiments()
     with timed("gate_sweep"):
         phase_gate_sweep()
     with timed("main_path"):
@@ -1927,7 +2201,8 @@ def main() -> int:
             deferred_launches, deferred_err = phase_pool_cli_deferred(
                 cli_input, cli_tmp)
         with timed("shard_cli"):
-            shard_launches = phase_shard_cli(cli_input, cli_tmp)
+            shard_launches, shard_exp_launches = phase_shard_cli(
+                cli_input, cli_tmp)
         with timed("csr_tools_cli"):
             csr_launches, csr_errs = phase_csr_tools_cli(cli_input, cli_tmp)
         with timed("cram_cli"):
@@ -1947,6 +2222,9 @@ def main() -> int:
     for kind in MULTI:
         with timed(f"{kind}_cli"):
             multi[kind] = phase_multi_cli(kind)
+    # the kernel experiments' launches on every product path: this process
+    # since their own phase, and the two shard_cli processes
+    exp_product = exp_launches()
     # host-clock seconds of each phase, to keep the script inside its limit
     emit({"phase": "phase_seconds", **seconds})
     print(card_line(), flush=True)
@@ -2002,6 +2280,28 @@ def main() -> int:
             "plain_ms": bench["plain_ms"],
             "bound_ms": bench["bound_ms"],
             "bound_by": bench["bound_by"],
+            "library_ms": None,
+        })
+    # the kernel experiments: their launches on the product paths (every
+    # phase after their own, counted in this process and the shard_cli
+    # processes), their own phase's beside
+    for lib, replaces in EXPERIMENTS.items():
+        rows = [r for r in exp_rows if r["kernel"] == lib]
+        row = next(r for r in rows if r["variant"] == EXP_DEFAULT[lib])
+        table.append({
+            "name": lib,
+            "route": "cuda",
+            "source": f"octopus_tpu_torch/csrc/{lib}.cu",
+            "replaces": replaces,
+            "launches": exp_product[lib] + shard_exp_launches[lib],
+            "launches_by_path": {"product_paths": exp_product[lib],
+                                 "shard_cli": shard_exp_launches[lib],
+                                 "kernel_experiments": exp_phase[lib]},
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": row["wrapper_ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
             "library_ms": None,
         })
     emit({"kernels": table})

@@ -5,6 +5,8 @@ this process cannot use raises: nothing quietly carries on on the CPU."""
 
 from __future__ import annotations
 
+import statistics
+
 import torch
 
 
@@ -19,4 +21,21 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return dev
 
 
-__all__ = ["resolve_device"]
+def cuda_ms(fn, reps: int = 7) -> float:
+    """Median CUDA-event time of fn, in ms, over `reps` runs after a
+    warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+__all__ = ["cuda_ms", "resolve_device"]

@@ -1,9 +1,11 @@
-"""The port stands alone: it imports neither JAX nor the reference package.
+"""The port stands alone: it imports neither JAX nor the reference package,
+nor the reference's kernel experiments (experiments/).
 
-An AST scan covers every module of octopus_tpu_torch and chip_smoke.py; a
-subprocess runs a small port call, loads the forest, training and
-clustering CSR, the standalone CSR, the evidence-BAM realigner and the CRAM
-modules, and then inspects sys.modules.
+An AST scan covers every module of octopus_tpu_torch (kernel_experiments/
+included) and chip_smoke.py; a subprocess runs a small port call, loads the
+forest, training and clustering CSR, the standalone CSR, the evidence-BAM
+realigner, the CRAM modules and the kernel experiments' ports (running the
+int16 probe's plain version), and then inspects sys.modules.
 """
 
 import ast
@@ -15,7 +17,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "octopus_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "octopus_tpu")
+FORBIDDEN = ("jax", "jaxlib", "octopus_tpu", "experiments")
 
 
 def _forbidden(name: str) -> bool:
@@ -41,10 +43,14 @@ def test_no_forbidden_imports():
     assert not bad, bad
 
 
-# the modules of the last slice, which the probe also loads
+# the modules of the last slices, which the probe also loads
 NEW_MODULES = ("core/csr/random_forest", "core/csr/training",
                "core/csr/clustering", "csr_run", "core/tools/bam_realigner",
-               "io/cram", "io/cram_writer", "io/rans")
+               "io/cram", "io/cram_writer", "io/rans",
+               "kernel_experiments/_common", "kernel_experiments/dual_chain",
+               "kernel_experiments/v10_kernel", "kernel_experiments/v11_kernel",
+               "kernel_experiments/v13_unroll2",
+               "kernel_experiments/i16_probe")
 
 
 PROBE = r"""
@@ -71,8 +77,12 @@ assert lines, "no calls"
 import importlib
 for m in ("core.csr.random_forest", "core.csr.training", "core.csr.clustering",
           "csr_run", "core.tools.bam_realigner", "io.cram", "io.cram_writer",
-          "io.rans"):
+          "io.rans", "kernel_experiments.dual_chain",
+          "kernel_experiments.v10_kernel", "kernel_experiments.v11_kernel",
+          "kernel_experiments.v13_unroll2", "kernel_experiments.i16_probe"):
     importlib.import_module("octopus_tpu_torch." + m)
+from octopus_tpu_torch.kernel_experiments import i16_probe
+assert int(i16_probe.probe(device="cpu")[0, 0]) == 51
 from octopus_tpu_torch.core.csr.random_forest import Forest
 from octopus_tpu_torch.io import rans
 forest = Forest.load("resources/forests/germline.npz")
@@ -80,7 +90,8 @@ assert forest.predict_proba(np.zeros((2, len(forest.measures)))).shape == (2,)
 assert rans.uncompress(rans.compress(b"ACGT" * 50, 1)) == b"ACGT" * 50
 leaked = sorted(m for m in sys.modules
                 if m in ("jax", "jaxlib") or m.startswith(("jax.", "jaxlib."))
-                or m == "octopus_tpu" or m.startswith("octopus_tpu."))
+                or m == "octopus_tpu" or m.startswith("octopus_tpu.")
+                or m == "experiments" or m.startswith("experiments."))
 print("LEAKED", leaked)
 print("NATIVE", "octopus_tpu_torch._native" in sys.modules)
 """

@@ -12,7 +12,9 @@ that its cram_writer made from a simulated BAM writes the BAM run's lines.
 
 import gzip
 import os
+import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -176,15 +178,18 @@ def write_both(tmp_path, name, genome, batches, contigs=(("chr1", 5000),
     ref, ref_ref, _ = genome
     names, lengths = [c for c, _ in contigs], [n for _, n in contigs]
     paths = []
-    for writer, reference, who in ((CramWriter, ref, "port"),
-                                   (ref_cram_writer.CramWriter, ref_ref,
-                                    "ref")):
-        path = str(tmp_path / f"{name}_{who}.cram")
-        with writer(path, names, lengths, samples=list(batches),
-                    reference=reference, **kwargs) as w:
-            for sample, batch in batches.items():
-                w.write_batch(batch, sample=sample)
-        paths.append(path)
+    # both writers gzip the header block with the current second as its
+    # mtime: one clock for both, or a second boundary between them differs
+    with mock.patch.object(time, "time", return_value=time.time()):
+        for writer, reference, who in ((CramWriter, ref, "port"),
+                                       (ref_cram_writer.CramWriter, ref_ref,
+                                        "ref")):
+            path = str(tmp_path / f"{name}_{who}.cram")
+            with writer(path, names, lengths, samples=list(batches),
+                        reference=reference, **kwargs) as w:
+                for sample, batch in batches.items():
+                    w.write_batch(batch, sample=sample)
+            paths.append(path)
     # equal bytes but for the 20-byte file id, an MD5 of the path
     port, ref_bytes = (Path(p).read_bytes() for p in paths)
     assert port[:6] == ref_bytes[:6] and port[26:] == ref_bytes[26:]

@@ -432,3 +432,73 @@ def test_csr_tools_on_cuda_write_the_cpu_outputs(cuda, tmp_path, monkeypatch,
     assert la.ROUTING.job_sets[("assignment", kernel)] > 0
     assert outputs["cuda"] == outputs["cpu"]
     assert len(outputs["cpu"][0]) > 3
+
+
+def _experiment_cases():
+    """(experiment, variant, one launch of its kernel on kernel-layout CUDA
+    tracks t, its plain version on t) for every variant built."""
+    from octopus_tpu_torch.kernel_experiments import (
+        _common as xc, dual_chain, v10_kernel, v11_kernel, v13_unroll2)
+    cases = [("dual_chain", f"K{K}",
+              lambda t, K=K: dual_chain.scores_dual_cuda(*t, K=K))
+             for K in dual_chain.KERNEL_K]
+    cases += [("v11", f"blk{b}",
+               lambda t, b=b: v11_kernel.scores_v11_cuda(*t, blk=b))
+              for b in v11_kernel.BLK_VARIANTS]
+    cases += [("v13", f"K{K}x{2 if two else 1}",
+               lambda t, K=K, two=two: v13_unroll2.launch_v13(
+                   t, pad=8, nuc_prior=2, K=K, two_rows=two))
+              for K in v13_unroll2.K_VARIANTS for two in (True, False)]
+
+    def v9(t):
+        return xc.plain_v9(t, 8, 2)
+
+    cases = [(e, v, fn, v9) for e, v, fn in cases]
+    cases += [("v10", f"K{K}",
+               lambda t, K=K: v10_kernel.scores_v10_cuda(*t, K=K),
+               lambda t: v10_kernel.v10_rows_plain(v10_kernel.v10_tracks(*t),
+                                                   pad=8))
+              for K in v10_kernel.K_VARIANTS]
+    return cases
+
+
+EXPERIMENT_VARIANTS = ["dual_chain-K1", "dual_chain-K2", "dual_chain-K4",
+                       "v11-blk1", "v11-blk2", "v13-K4x2", "v13-K4x1",
+                       "v13-K6x2", "v13-K6x1", "v10-K1", "v10-K2", "v10-K4",
+                       "v10-K8"]
+
+
+@pytest.mark.parametrize("rows", [150, 33, 7])
+@pytest.mark.parametrize("variant", EXPERIMENT_VARIANTS)
+def test_kernel_experiments_match_their_plain_versions(cuda, variant, rows):
+    """Each experiment kernel (csrc/exp_*.cu) on 3,072 pairs (a multiple of
+    every variant's 128 K) equals its plain version, also at odd and
+    sub-chunk read lengths; the scorers also equal kernel #1."""
+    from octopus_tpu_torch.kernel_experiments import _common as xc
+    cases = {f"{e}-{v}": (fn, plain) for e, v, fn, plain in _experiment_cases()}
+    assert sorted(cases) == sorted(EXPERIMENT_VARIANTS)
+    fn, plain = cases[variant]
+    t = xc.as_tracks(xc.parity_inputs(3072, 5, seed=rows, rows=rows), cuda)
+    got = fn(t)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain(t))
+    assert torch.equal(got, pb.pairhmm_scores_cuda(*(a.t() for a in t), pad=8))
+
+
+@pytest.mark.parametrize("B", [128, 4098])
+@pytest.mark.parametrize("pack", [2, 1])
+@pytest.mark.parametrize("values", ["small", "wrapping"])
+def test_i16_kernel_matches_its_plain_version(cuda, B, pack, values):
+    """csrc/exp_i16.cu equals the probe's int16 function, sums wrapping."""
+    from octopus_tpu_torch.kernel_experiments import i16_probe
+    gen = torch.Generator(device=cuda).manual_seed(B)
+    lo, hi = (0, 1000) if values == "small" else (-32768, 32767)
+    a, b = (torch.randint(lo, hi, (16, B), generator=gen, device=cuda,
+                          dtype=torch.int16) for _ in range(2))
+    b[:, ::3] = a[:, ::3]
+    got = i16_probe.run_cuda(a, b, pack=pack)
+    torch.cuda.synchronize()
+    assert torch.equal(got, i16_probe.kern_plain(a, b))
+    assert int(i16_probe.run(torch.ones((16, 128), dtype=torch.int16),
+                             torch.full((16, 128), 2, dtype=torch.int16),
+                             pack=pack)[0, 0]) == 51

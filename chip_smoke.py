@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Sixteen phases, each printing JSON lines:
+Twenty-two phases, each printing JSON lines:
 
 1. build: g++ builds the host extension and nvcc builds the three CUDA
    kernels (csrc/pairhmm.cu, pairhmm_lanes.cu, pairhmm_cost.cu), all from
@@ -64,7 +64,7 @@ Sixteen phases, each printing JSON lines:
    in turns (the host's capped at 5 s a size), and the crossover in real
    elements (G*S*K*N), which sets subclone_vb.VB_DEVICE_MIN;
 7. cancer_cli: a simulated tumour (60x) and normal (30x), 100 kb, about 14
-   somatic SNVs at VAF 0.25 (bench_e2e_multi.py's bench_cancer, written
+   somatic SNVs at VAF 0.25 (the cancer mode of bench_e2e_multi, written
    untimed), through octopus_tpu_torch.cli.main with --caller cancer
    --normal-sample NORMAL. An untimed checked run with both gates at 0
    (OCTOPUS_TPU_HOST_HMM_MAX and OCTOPUS_TPU_VB_DEVICE_MIN) keeps every
@@ -79,9 +79,9 @@ Sixteen phases, each printing JSON lines:
    tests/test_e2e_polyclone_cell.py (12 kb, 3 clones, 100x; 9 kb, 6 cells,
    15x) through the CLI once on the card with both gates at 0, every VB
    evaluation held against the CPU's, and those tests' truth checks.
-9. population_cli and trio_cli: bench_e2e_multi.py's population (3
+9. population_cli and trio_cli: bench_e2e_multi's population (3
    samples) and trio (MOM, DAD, KID with 10 de novo SNVs) inputs, 100 kb at
-   30x, uncut (simulate_population, simulate_trio, written untimed), through
+   30x, uncut (written untimed), through
    the CLI with --caller population and with -M MOM -F DAD. An untimed
    checked run with the host-DP gate at 0 keeps every kernel #1 launch
    (from populate and read assignment) and holds it against the plain twin
@@ -119,8 +119,36 @@ Sixteen phases, each printing JSON lines:
    called at the default gate in turns with the BAM (bam, cram, bam); every
    run must write the serial run's records.
 
-Phases 10-12, 14 and 15 run after the cli phase, in the order above, and
-13 after them.
+The ported entry points (octopus_tpu_torch.bench, bench_e2e,
+bench_e2e_multi, bench_scaling, scripts/), each phase printing the
+module's own JSON line before its row:
+
+16. bench: the bench module at its batches (the largest, 65,536 pairs,
+   timed), then its inputs at 16,384 pairs through the scorer it times
+   against the plain twin, error 0;
+17. scripts: long_phase on the cli phase's BAM (pass 1 writes the serial
+   run's records, pass 2 a subset of its sites at recall 0.95),
+   split_realigned_bam and filter_assigned_reads on csr_tools_cli's
+   evidence BAM, train_forest --synthetic at 30 kb and its forest in
+   --forest-model on the cli BAM;
+18. bench_e2e: the README's 200 kb at 30x, the module's own run (--threads
+   8, default gate) and a serial run at gate 0 that must launch #1 after
+   the warm-up; identical records, recall and precision 0.95, the pool's
+   start-up beside the walls;
+19. bench_e2e_long: the long mode (5-15 kb reads, the PacBioCCS preset) at
+   50 kb (the README's 100 kb, cut for the time limit), 30x, at the
+   default gate and gate 0: identical records, #1 launched at gate 0, its
+   longest R printed; then #1 in every variant on 256 pairs of 5 kb and
+   of 15 kb reads against the plain twin (long_read_kernel);
+20. bench_scaling: 1 Mb at 30x as one and two --work-queue processes; the
+   merged body identical;
+21. bench_multi: bench_e2e_multi.bench, the module's own path (--threads
+   4), for its polyclone, cell and trio modes; the accuracy must equal the
+   reference CLI's on the same seed. Phases 7 and 9 take their inputs and
+   accuracy lines from the same module.
+
+Phases 10-12, 14, 15 and 17 run after the cli phase, in the order above,
+then 18-20 and 13; 16 runs after gate_sweep, 21 last.
 
 Then it prints the card's name and power limit, the kernel table, and as
 its last line {"ok": true, "device": {...}}. Any failure raises, and the
@@ -143,6 +171,12 @@ import time
 
 import numpy as np
 
+# the H100's rates and the pair-HMM's bound, one copy for this script and
+# the bench module
+from octopus_tpu_torch.core.likelihood.pairhmm_batch import (
+    DRAM_BYTES_PER_S, INT32_OPS_PER_S, MATCH_COST_OPS, OPS_PER_CELL,
+    pairhmm_bound)
+
 SEED = 2024
 REGION_KB = 100          # of a whole genome: cut for the run's time limit
 CLI_REGION_KB = 300      # the CLI phase's contig: cut for the time limit
@@ -152,14 +186,6 @@ WINDOW_TARGET_READS = 5000
 WINDOW_BIN = 1 << 14     # density bins of the windowing, as a BAI's
 WINDOW_MIN = 5_000
 READ_PAD = 200           # reads fetched beyond each window edge
-INT32_OPS_PER_S = 132 * 64 * 1.98e9   # SMs x INT32 lanes x boost clock
-DRAM_BYTES_PER_S = 3.35e12
-# the fewest int32 instructions a band cell needs on sm_90, with the DPX
-# forms: match cost 6 (three compares, each with a predicated update), M 2
-# (VIMNMX3 and an add), I 3 (an add, VIADDMNMX, nuc_prior), deletion open 2
-# (a minimum and an add), deletion chain 1 (VIADDMNMX)
-MATCH_COST_OPS = 6
-OPS_PER_CELL = MATCH_COST_OPS + 2 + 3 + 2 + 1
 # the cost kernel's own work per cell: the wavefront without the match
 # cost, which ran when the cost tensor was built
 COST_OPS_PER_CELL = OPS_PER_CELL - MATCH_COST_OPS
@@ -364,20 +390,6 @@ def host_ms(fn, n=20):
     t = (time.perf_counter() - t0) / n * 1e3
     torch.cuda.synchronize()
     return t
-
-
-def pairhmm_bound(B, R, pad):
-    """Least time for B pairs: the larger of OPS_PER_CELL int32 ops per
-    cell (plus row 0's deletion chain and the last row's band minimum, 3
-    per lane each) over the int32 rate, and each track read once and the
-    scores written once over the memory rate."""
-    D = 2 * pad
-    W = R + 2 * pad - 1
-    ops = (OPS_PER_CELL * R + 6) * D * B
-    nbytes = (2 * R + 5 * W) * 4 * B + 4 * B
-    t_ops = ops / INT32_OPS_PER_S * 1e3
-    t_bytes = nbytes / DRAM_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def cost_bound(B, R, pad):
@@ -1455,6 +1467,40 @@ def check_vb(kept, phase):
     return worst
 
 
+def reset_counts():
+    """Every pair-HMM kernel's counts, the routing and the pool at 0, the
+    likelihood array's caches empty."""
+    from octopus_tpu_torch import run
+    from octopus_tpu_torch.core.likelihood import likelihood_array as la
+    from octopus_tpu_torch.core.likelihood import pairhmm_batch as pb
+    for counts in pb.KERNEL_COUNTS.values():
+        counts.reset()
+    la.ROUTING.reset()
+    la._PENALTY_CACHE.clear()
+    la._KMER_INDEX_CACHE.clear()
+    run.POOL.reset()
+
+
+def read_counts() -> dict:
+    """Launches, pairs and longest rows of each kernel since reset_counts,
+    the job sets by (source, scorer) and the pool's windows."""
+    from octopus_tpu_torch import run
+    from octopus_tpu_torch.core.likelihood import likelihood_array as la
+    from octopus_tpu_torch.core.likelihood import pairhmm_batch as pb
+    return {"launches": {k: c.launches for k, c in pb.KERNEL_COUNTS.items()},
+            "pairs": {k: c.pairs for k, c in pb.KERNEL_COUNTS.items()},
+            "max_rows": {k: c.max_rows for k, c in pb.KERNEL_COUNTS.items()},
+            "job_sets": {f"{src}/{sc}": v for (src, sc), v
+                         in sorted(la.ROUTING.job_sets.items())},
+            "pool": dataclasses.asdict(run.POOL)}
+
+
+def caller_vcf(tmp, label, timed):
+    """The VCF that run_caller_cli writes for a run."""
+    import os
+    return os.path.join(tmp, f"{label}_{'timed' if timed else 'checked'}.vcf")
+
+
 def run_caller_cli(tmp, phase, label, argv, env, device, timed,
                    sources=("populate", "assignment")):
     """One CLI run: the environment set, every counter reset; returns
@@ -1474,16 +1520,12 @@ def run_caller_cli(tmp, phase, label, argv, env, device, timed,
     for k in CLI_ENV_KEYS:
         os.environ.pop(k, None)
     os.environ.update(env)
-    la._PENALTY_CACHE.clear()
-    la._KMER_INDEX_CACHE.clear()
+    reset_counts()
     timers.reset()
-    for counts in pb.KERNEL_COUNTS.values():
-        counts.reset()
-    la.ROUTING.reset()
     gl.COUNTS.reset()
     vb.COUNTS.reset()
     misses = measures.FACET_MISSES
-    out = os.path.join(tmp, f"{label}_{'timed' if timed else 'checked'}.vcf")
+    out = caller_vcf(tmp, label, timed)
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     sync()
     t = time.perf_counter()
@@ -1532,23 +1574,26 @@ def somatic_lines(lines, somatic=True):
 
 
 def phase_cancer_cli(device="cuda", kb=CANCER_KB):
-    """The cancer caller through the CLI on a simulated tumour-normal pair:
-    an untimed checked run with both gates at 0, then timed runs in turns.
-    Returns (the launches of kernel #1 in the timed gates-0 run, the kept
-    launches' and evaluations' largest errors).
-    device="cpu" rehearses the phase (no kernel, no card VB)."""
+    """The cancer caller through the CLI on the cancer mode of
+    octopus_tpu_torch.bench_e2e_multi (its input, and its accuracy line
+    for the timed default-gates run): an untimed checked run with both
+    gates at 0, then timed runs in turns. Returns (the launches of kernel
+    #1 in the timed gates-0 run, the kept launches' and evaluations'
+    largest errors). device="cpu" rehearses the phase (no kernel, no card
+    VB)."""
     import os
     import shutil
     import tempfile
+    from octopus_tpu_torch import bench_e2e_multi
     from octopus_tpu_torch.core.likelihood import likelihood_array as la
     from octopus_tpu_torch.core.likelihood import pairhmm_batch as pb
-    from octopus_tpu_torch.utils.synthetic import simulate_tumour_normal
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_cancer_")
     try:
         t0 = time.perf_counter()
-        fa, bam_n, bam_t, germline, somatic, n = simulate_tumour_normal(
-            tmp, kb=kb, depth=CANCER_DEPTH, seed=CANCER_SEED, vaf=CANCER_VAF)
+        fa, (bam_n, bam_t), (germline, somatic) = (
+            bench_e2e_multi.cancer_input(tmp, kb=kb, depth=CANCER_DEPTH,
+                                         seed=CANCER_SEED, vaf=CANCER_VAF))
         emit({"phase": "cancer_cli_input", "region_kb": kb,
               "tumour_depth": CANCER_DEPTH, "normal_depth": CANCER_DEPTH // 2,
               "vaf": CANCER_VAF, "germline": len(germline),
@@ -1592,6 +1637,11 @@ def phase_cancer_cli(device="cuda", kb=CANCER_KB):
             runs.append(lines)
             if label == "gates0":
                 launches = row["launches"]["pairhmm"]
+            else:
+                # the bench module's accuracy line for this run
+                print(json.dumps(bench_e2e_multi.cancer_result(
+                    caller_vcf(tmp, label, True), (germline, somatic), kb,
+                    CANCER_DEPTH, row["wall_s"], CANCER_VAF)), flush=True)
         if any(lines != checked for lines in runs):
             raise AssertionError("cancer_cli runs wrote different records")
         return launches, errs
@@ -1655,18 +1705,18 @@ def phase_vb_sample_cli(kind, device="cuda"):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-# bench_e2e_multi.py's population and trio configurations, uncut: 100 kb,
-# three samples at 30x
+# octopus_tpu_torch.bench_e2e_multi's population and trio modes, uncut: 100
+# kb, three samples at 30x, the modes' own seeds and CLI arguments
 MULTI_KB = 100
 MULTI_DEPTH = 30
-MULTI = {"population": {"seed": 9, "argv": ["--caller", "population"]},
-         "trio": {"seed": 5, "argv": ["-M", "MOM", "-F", "DAD"]}}
+MULTI = ("population", "trio")
 # what the reference CLI (octopus_tpu, JAX on the CPU) reaches on the same
-# BAMs, by bench_e2e_multi.py's own measures (`JAX_PLATFORMS=cpu python
-# bench_e2e_multi.py population|trio 100 30`): 60 of 61 population sites,
-# no false positive, every genotype right; all 10 de novo SNVs flagged and
-# none else, 1 of them PASS at 30x, every germline site called
-MULTI_BARS = {"population": {"recall": 60 / 61, "fp": 0,
+# BAMs, by bench_e2e_multi.py's own measures, which round to 4 places
+# (`JAX_PLATFORMS=cpu python bench_e2e_multi.py population|trio 100 30`):
+# 60 of 61 population sites, no false positive, every genotype right; all 10
+# de novo SNVs flagged and none else, 1 of them PASS at 30x, every germline
+# site called
+MULTI_BARS = {"population": {"recall": round(60 / 61, 4), "fp": 0,
                              "gt_concordance": 1.0},
               "trio": {"caller_denovo_recall": 1.0, "caller_denovo_fp": 0,
                        "denovo_recall": 0.1, "denovo_fp": 0,
@@ -1674,103 +1724,45 @@ MULTI_BARS = {"population": {"recall": 60 / 61, "fp": 0,
 MULTI_GATES = {"default_gate": {}, "gate0": {"OCTOPUS_TPU_HOST_HMM_MAX": "0"}}
 
 
-def _records(lines, pass_only=True):
-    """(0-based position, INFO flags, per-sample GT) of records with an
-    ALT, PASS only by default."""
-    out = []
-    for line in lines:
-        cols = line.split("\t")
-        if cols[4] == "." or (pass_only and cols[6] != "PASS"):
-            continue
-        keys = cols[8].split(":")
-        gts = [dict(zip(keys, v.split(":"))).get("GT", ".") for v in cols[9:]]
-        out.append((int(cols[1]) - 1, set(cols[7].split(";")), gts))
-    return out
-
-
-def multi_accuracy(kind, lines, truth):
-    """bench_e2e_multi.py's measures: population recall, false positives and
-    genotype concordance on PASS records; trio de novo recall and false
-    positives among all DENOVO-flagged records (the caller's) and among
-    PASS ones, and germline recall."""
-    def near(points, p, tol=5):
-        return any(abs(p - q) <= tol for q in points)
-
-    recs = _records(lines)
-    if kind == "population":
-        called = {p for p, _, _ in recs} | {p + 1 for p, _, _ in recs}
-        ok = tot = 0
-        for p, _, gts in recs:
-            match = [q for q in sorted(truth) if abs(q - p) <= 5]
-            if not match:
-                continue
-            for gt, want in zip(gts, truth[match[0]]):
-                try:
-                    got = sorted(int(x) > 0 for x in gt.replace("|", "/")
-                                 .split("/"))
-                except ValueError:
-                    continue
-                tot += 1
-                ok += got == sorted(bool(x) for x in want)
-        return {"recall": sum(near(called, p) for p in truth) / len(truth),
-                "fp": sum(not near(truth, p) and not near(truth, p + 1)
-                          for p, _, _ in recs),
-                "gt_concordance": ok / max(tot, 1)}
-    germline, denovo = truth
-    dn = {p for p, info, _ in recs if "DENOVO" in info}
-    other = {p for p, info, _ in recs if "DENOVO" not in info}
-    all_dn = {p for p, info, _ in _records(lines, pass_only=False)
-              if "DENOVO" in info}
-    return {"denovo_recall": sum(near(dn, p) for p in denovo) / len(denovo),
-            "denovo_fp": sum(not near(denovo, p) for p in dn),
-            "caller_denovo_recall": (sum(near(all_dn, p) for p in denovo)
-                                     / len(denovo)),
-            "caller_denovo_fp": sum(not near(denovo, p) for p in all_dn),
-            "germline_recall": (sum(near(other | dn, p) for p in germline)
-                                / max(len(germline), 1))}
-
-
 def phase_multi_cli(kind, device="cuda", kb=MULTI_KB):
-    """The population or trio caller through the CLI on bench_e2e_multi.py's
-    100 kb three-sample input: an untimed checked run with the host-DP gate
-    at 0, every kernel #1 launch held against its plain twin, then timed
-    runs in turns (default gate, gate 0, default gate). Every run must
-    write the same records and reach the reference's accuracy. Returns (the
-    launches of kernel #1 in the timed gate-0 run, the kept launches'
-    largest error). device="cpu" rehearses the phase (no kernel)."""
+    """The population or trio caller through the CLI on the mode of
+    octopus_tpu_torch.bench_e2e_multi (its 100 kb three-sample input, and
+    its accuracy line for every run): an untimed checked run with the
+    host-DP gate at 0, every kernel #1 launch held against its plain twin,
+    then timed runs in turns (default gate, gate 0, default gate). Every
+    run must write the same records and reach the reference's accuracy.
+    Returns (the launches of kernel #1 in the timed gate-0 run, the kept
+    launches' largest error). device="cpu" rehearses the phase (no
+    kernel)."""
     import os
     import shutil
     import tempfile
+    from octopus_tpu_torch import bench_e2e_multi
     from octopus_tpu_torch.core.likelihood import likelihood_array as la
     from octopus_tpu_torch.core.likelihood import pairhmm_batch as pb
-    from octopus_tpu_torch.utils import synthetic
 
     phase = f"{kind}_cli"
+    make_input, mode_argv, result = bench_e2e_multi.MODES[kind]
     tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{kind}_")
     try:
         t0 = time.perf_counter()
-        seed = MULTI[kind]["seed"]
-        if kind == "population":
-            fa, bams, truth, _ = synthetic.simulate_population(
-                tmp, kb=kb, depth=MULTI_DEPTH, seed=seed, n_samples=3)
-            sites = {"truth_sites": len(truth)}
-        else:
-            fa, bams, germline, denovo, _ = synthetic.simulate_trio(
-                tmp, kb=kb, depth=MULTI_DEPTH, seed=seed)
-            truth = (germline, denovo)
-            sites = {"germline": len(germline), "denovo": len(denovo)}
+        fa, bams, truth = make_input(tmp, kb=kb, depth=MULTI_DEPTH)
+        sites = ({"truth_sites": len(truth)} if kind == "population" else
+                 {"germline": len(truth[0]), "denovo": len(truth[1])})
         emit({"phase": f"{phase}_input", "region_kb": kb,
-              "depth": MULTI_DEPTH, "seed": seed, "samples": len(bams),
+              "depth": MULTI_DEPTH, "samples": len(bams),
               **sites, "bam_bytes": sum(os.path.getsize(b) for b in bams),
               "simulate_and_write_s": time.perf_counter() - t0})
-        argv = ["-R", fa, "-I", *bams, *MULTI[kind]["argv"]]
+        argv = ["-R", fa, "-I", *bams, *mode_argv]
 
         def run(label, timed):
             lines, row = run_caller_cli(tmp, phase, label, argv,
                                         MULTI_GATES[label], device, timed)
-            acc = multi_accuracy(kind, lines, truth)
+            acc = result(caller_vcf(tmp, label, timed), truth, kb,
+                         MULTI_DEPTH, row["wall_s"])
+            print(json.dumps(acc), flush=True)     # the bench module's line
             row.update({"region_kb": kb, "wall_s_per_kb": row["wall_s"] / kb,
-                        **acc})
+                        **{k: acc[k] for k in MULTI_BARS[kind]}})
             emit(row)
             short = {k: (acc[k], bar) for k, bar in MULTI_BARS[kind].items()
                      if acc[k] != bar}
@@ -2161,6 +2153,434 @@ SHARD_BATCHES = (65_536, 4_099)
 SHARD_RTOL, SHARD_ATOL = 2e-4, 2e-3
 
 
+# ---------------------------------------------------------------------------
+# phases 16-21: the ported entry points (octopus_tpu_torch.bench*,
+# octopus_tpu_torch.scripts)
+# ---------------------------------------------------------------------------
+
+def phase_bench(device="cuda", check_B=16384):
+    """octopus_tpu_torch.bench at its own batches (its JSON line), then its
+    inputs at check_B pairs through the scorer it times, held against the
+    plain twin, error 0. Returns (the scorer's launches in the bench's run,
+    the error)."""
+    import torch
+    from octopus_tpu_torch import bench
+    from octopus_tpu_torch.core.likelihood import pairhmm_batch as pb
+    reset_counts()
+    line = bench.run(device=device)
+    counts = read_counts()
+    print(json.dumps(line), flush=True)
+    dev = torch.device(device)
+    tracks = bench.bench_inputs(check_B, dev,
+                                torch.Generator(device=dev).manual_seed(SEED))
+    got = pb._scorer(dev)(*tracks, pad=bench.PAD)
+    want = pb.pairhmm_scores_plain(*tracks, pad=bench.PAD)
+    err = int((got.long() - want.long()).abs().max())
+    emit({"phase": "bench", "kernel": line["detail"]["kernel"],
+          "launches": counts["launches"], "check_B": check_B,
+          "max_abs_err": err})
+    del tracks, got, want
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    if err:
+        raise AssertionError(f"bench: the scorer differs from its plain twin "
+                             f"by {err}")
+    return counts["launches"]["pairhmm"], err
+
+
+# the README's `bench_e2e.py 200 30`, and its `bench_e2e.py 100 30 long`
+# cut to 50 kb for the run's time limit: at 100 kb a long-mode run took
+# 109-118 s on the card, host-bound (the haplotype beam ~50 s)
+BENCH_E2E_KB = 200
+BENCH_E2E_LONG_KB = 50
+BENCH_E2E_GATES = {"default_gate": {}, "gate0": {"OCTOPUS_TPU_HOST_HMM_MAX": "0"}}
+
+
+def run_bench_e2e(phase, inputs, tmp, label, device, threads):
+    """One octopus_tpu_torch.bench_e2e run (its untimed 10 kb warm-up and
+    its timed run) at BENCH_E2E_GATES[label] with `threads`: prints the
+    module's line, then the phase's row with the kernels' counts of the
+    timed run alone and its wall unrounded. Recall and precision must reach
+    0.95. Returns (record lines, the module's line, the row)."""
+    import os
+    from octopus_tpu_torch import bench_e2e
+    fa, bam, truth, kb, extra = inputs
+    for k in CLI_ENV_KEYS:
+        os.environ.pop(k, None)
+    os.environ.update(BENCH_E2E_GATES[label])
+    d = os.path.join(tmp, f"{label}_{threads}")
+    os.makedirs(d)
+    try:
+        bench_e2e.warm_up(fa, bam, extra, d, device)
+        reset_counts()
+        result, out, wall = bench_e2e.run_bench(fa, bam, truth, kb, DEPTH,
+                                                extra, d, device, threads)
+    finally:
+        for k in CLI_ENV_KEYS:
+            os.environ.pop(k, None)
+    row = {"phase": phase, "run": label, "threads": threads, "wall_s": wall,
+           **read_counts()}
+    print(json.dumps(result), flush=True)
+    emit(row)
+    with open(out) as fh:
+        lines = [line.rstrip("\n") for line in fh if not line.startswith("#")]
+    if result["recall"] < 0.95 or result["precision"] < 0.95:
+        raise AssertionError(f"{phase} {label}: recall {result['recall']} "
+                             f"precision {result['precision']}")
+    return lines, result, row
+
+
+def pool_start_up(inputs, workers, device):
+    """scripts/torch_pool_scaling.py's start-up measure on this input:
+    seconds until each of `workers` pool workers, started as the CLI
+    starts them, has returned one task."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        "torch_pool_scaling.py")
+    spec = importlib.util.spec_from_file_location("torch_pool_scaling", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.pool_start_up(["-R", inputs[0], "-I", inputs[1], "--device",
+                              device], workers)
+
+
+def phase_bench_e2e(device="cuda", kb=BENCH_E2E_KB):
+    """octopus_tpu_torch.bench_e2e at the README's 200 kb, 30x: the
+    module's own run (--threads 8, the default gate; its workers run on the
+    host) and a serial run at gate 0 (--threads 1, so the card scores every
+    job set), each printing the module's line; identical records, recall
+    and precision 0.95, #1 launched in the serial run's timed part; the
+    pool's start-up (scripts/torch_pool_scaling.py's measure) beside the
+    walls. Returns #1's launches in the serial gate-0 run."""
+    import os
+    import shutil
+    import tempfile
+    from octopus_tpu_torch import bench_e2e
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bench_e2e_")
+    try:
+        t0 = time.perf_counter()
+        fa, bam, truth, _, extra = bench_e2e.simulate_mode(tmp, kb, DEPTH)
+        emit({"phase": "bench_e2e_input", "region_kb": kb, "depth": DEPTH,
+              "truth": len(truth), "bam_bytes": os.path.getsize(bam),
+              "simulate_and_write_s": time.perf_counter() - t0})
+        inputs = (fa, bam, truth, kb, extra)
+        pooled, _, pooled_row = run_bench_e2e(
+            "bench_e2e", inputs, tmp, "default_gate", device,
+            bench_e2e.THREADS)
+        serial, _, serial_row = run_bench_e2e("bench_e2e", inputs, tmp,
+                                              "gate0", device, 1)
+        W = pool_workers()
+        ready = pool_start_up(inputs, W, device)
+        emit({"phase": "bench_e2e_pool", "workers": W,
+              "cpu_count": os.cpu_count(),
+              "wall_s": {"default_gate_threads8": pooled_row["wall_s"],
+                         "gate0_threads1": serial_row["wall_s"]},
+              "start_up_ready_s": ready,
+              "start_up_share": max(ready) / pooled_row["wall_s"],
+              "pool_cost_s": pooled_row["wall_s"] - serial_row["wall_s"]})
+        if serial != pooled:
+            raise AssertionError("bench_e2e: the serial gate-0 run and the "
+                                 "pooled run wrote different records")
+        launches = serial_row["launches"]["pairhmm"]
+        if device == "cuda" and not launches:
+            raise AssertionError("bench_e2e: the serial gate-0 run never "
+                                 "launched #1")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# the long-read kernel check: a few hundred pairs of a 5 kb and a 15 kb
+# read against their windows, the reads' length of the long mode
+LONG_KERNEL_CASES = ((256, 5000), (256, 15000))
+
+
+def long_read_kernel(pb, pad=8):
+    """Kernel #1 on a few hundred pairs of reads 5,000 and 15,000 bases
+    long (random_batch), every variant of csrc/pairhmm.cu against the plain
+    twin, error 0; the wrapper's and each variant's CUDA-event medians and
+    the plain twin's one run beside the bound."""
+    import torch
+    rng = np.random.default_rng(SEED + 3)
+    rows = []
+    for B, R in LONG_KERNEL_CASES:
+        args = [torch.from_numpy(a).cuda()
+                for a in random_batch(rng, B, R, pad)]
+        # the plain twin takes seconds here: one run, timed as it runs
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        want = pb.pairhmm_scores_plain(*args, pad=pad)
+        e1.record()
+        torch.cuda.synchronize()
+        got = pb.pairhmm_scores_cuda(*args, pad=pad)
+        err = int((got.long() - want.long()).abs().max())
+        variant_ms = {}
+        for T in pb.THREADS:
+            for wave in (False, True):
+                if T > 2 * pad or (wave and not pb.wave_ok(T, pad)):
+                    continue
+                launch = (lambda T=T, wave=wave: pb.launch_kernel(
+                    args, pad=pad, threads=T, wave=wave))
+                v = launch()
+                err = max(err, int((v.long() - want.long()).abs().max()))
+                variant_ms[f"{'W' if wave else 'T'}{T}"] = cuda_ms(launch)
+        bound_ms, bound_by = pairhmm_bound(B, R, pad)
+        rows.append({"B": B, "R": R, "pad": pad, "max_abs_err": err,
+                     "max_score": int(want.max()),
+                     "wrapper_ms": cuda_ms(lambda: pb.pairhmm_scores_cuda(
+                         *args, pad=pad)),
+                     "plain_ms": e0.elapsed_time(e1),
+                     "chosen": chosen_variant(pb, "pairhmm", B, pad),
+                     "variant_ms": variant_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by})
+        del args, want, got
+        torch.cuda.empty_cache()
+    emit({"phase": "long_read_kernel", "rows": rows})
+    if any(r["max_abs_err"] for r in rows):
+        raise AssertionError(f"long_read_kernel: {rows}")
+    return max(r["max_abs_err"] for r in rows)
+
+
+def phase_bench_e2e_long(device="cuda", kb=BENCH_E2E_LONG_KB):
+    """octopus_tpu_torch.bench_e2e's `long` mode (5-15 kb PacBio-HiFi-style
+    reads through resources/configs/PacBioCCS.config) at 50 kb (the
+    README's 100 kb cut, BENCH_E2E_LONG_KB), 30x, at the default gate and
+    at gate 0: identical records, recall and precision 0.95, and kernel #1
+    launched at gate 0 (its longest R printed). Then kernel #1 on pairs of
+    whole long reads (long_read_kernel). Returns (#1's launches at gate 0,
+    the kernel check's error)."""
+    import os
+    import shutil
+    import tempfile
+    from octopus_tpu_torch import bench_e2e
+    from octopus_tpu_torch.core.likelihood import pairhmm_batch as pb
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bench_e2e_long_")
+    try:
+        t0 = time.perf_counter()
+        fa, bam, truth, _, extra = bench_e2e.simulate_mode(tmp, kb, DEPTH,
+                                                           "long")
+        emit({"phase": "bench_e2e_long_input", "region_kb": kb,
+              "depth": DEPTH, "truth": len(truth),
+              "bam_bytes": os.path.getsize(bam),
+              "simulate_and_write_s": time.perf_counter() - t0})
+        inputs = (fa, bam, truth, kb, extra)
+        runs = {}
+        for label in ("default_gate", "gate0"):
+            lines, _, row = run_bench_e2e("bench_e2e_long", inputs, tmp, label,
+                                          device, bench_e2e.THREADS)
+            runs[label] = (lines, row)
+        if runs["gate0"][0] != runs["default_gate"][0]:
+            raise AssertionError("bench_e2e_long: gate 0 and the default gate "
+                                 "wrote different records")
+        launches = runs["gate0"][1]["launches"]["pairhmm"]
+        if device == "cuda" and not launches:
+            raise AssertionError("bench_e2e_long: gate 0 never launched #1")
+        err = long_read_kernel(pb) if device == "cuda" else 0
+        return launches, err
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+BENCH_SCALING_MB = 1
+BENCH_SCALING_WORKERS = (1, 2)
+
+
+def phase_bench_scaling(device="cuda", mb=BENCH_SCALING_MB,
+                        workers=BENCH_SCALING_WORKERS):
+    """octopus_tpu_torch.bench_scaling at 1 Mb, 30x: the CLI as one and as
+    two --work-queue processes on the card (each its own CUDA context and
+    half the host's cores), each printing the module's line; the merged
+    body must equal the single process's."""
+    import os
+    import shutil
+    import tempfile
+    from octopus_tpu_torch import bench_e2e, bench_scaling
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bench_scaling_")
+    try:
+        t0 = time.perf_counter()
+        fa, bam, _, _ = bench_e2e.simulate(tmp, mb * 1000, DEPTH)
+        emit({"phase": "bench_scaling_input", "mb": mb, "depth": DEPTH,
+              "bam_bytes": os.path.getsize(bam),
+              "simulate_and_write_s": time.perf_counter() - t0})
+        env = {k: v for k, v in os.environ.items() if k not in CLI_ENV_KEYS}
+        rows = []
+        for row in bench_scaling.scaling(fa, bam, tmp, mb, DEPTH, workers,
+                                         device, env):
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+        if any(r["identical_to_single"] is False for r in rows) or not all(
+                r["identical_to_single"] for r in rows[1:]):
+            raise AssertionError(f"bench_scaling: {rows}")
+        return rows
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def bam_reads(path):
+    """(read count, HP tag of each read) of a BAM."""
+    from octopus_tpu_torch.io.bam import BamFile
+    src = BamFile(path)
+    tags = []
+    for contig, n in zip(src.header.ref_names, src.header.ref_lengths):
+        for batch in src.fetch(contig, 0, n, keep_aux=True).values():
+            tags += [batch.tag(i, "HP") for i in range(len(batch))]
+    return len(tags), tags
+
+
+def phase_scripts(inputs, tmp, device="cuda"):
+    """The four user scripts (octopus_tpu_torch.scripts) on the card:
+    long_phase on the cli phase's BAM (pass 1 must write the serial run's
+    records, pass 2 a subset of its sites at recall 0.95); split_realigned_bam
+    and filter_assigned_reads on csr_tools_cli's evidence BAM (every read in
+    the BAM of its HP tuple; the uniquely assigned ones kept); train_forest
+    --synthetic at 30 kb, the forest then loaded by --forest-model on the
+    cli BAM (every record carries RFGQ). Returns #1's launches in the
+    long_phase and forest runs."""
+    import os
+    from octopus_tpu_torch import bench_e2e
+    from octopus_tpu_torch.io.vcf import VcfReader
+    from octopus_tpu_torch.scripts import (filter_assigned_reads, long_phase,
+                                           split_realigned_bam, train_forest)
+    with open(inputs["serial"]) as fh:
+        serial = [line.rstrip("\n") for line in fh if not line.startswith("#")]
+    d = os.path.join(tmp, "scripts")
+    os.makedirs(d)
+    launches = 0
+
+    def lines_of(path):
+        with open(path) as fh:
+            return [line.rstrip("\n") for line in fh
+                    if not line.startswith("#")]
+
+    # long_phase: both passes in-process, default gate
+    out = os.path.join(d, "phased.vcf")
+    reset_counts()
+    t0 = time.perf_counter()
+    long_phase.main(["-R", inputs["fa"], "-I", inputs["bam"], "-o", out,
+                     "--device", device, "--keep-intermediate"])
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    launches += counts["launches"]["pairhmm"]
+    first, second = lines_of(os.path.join(d, "phased.tmp.vcf")), lines_of(out)
+    recall, precision = accuracy(second, inputs["truth"])
+    sites = {line.split("\t")[1] for line in first}
+    phasing = {name: bench_e2e.phasing_stats(
+        [r for r in VcfReader(path).records() if r.alts], {})
+        for name, path in (("pass1", os.path.join(d, "phased.tmp.vcf")),
+                           ("pass2", out))}
+    row = {"phase": "scripts", "script": "long_phase", "wall_s": wall,
+           "pass1_records": len(first), "pass2_records": len(second),
+           "recall": recall, "precision": precision,
+           "phase_sets": {k: v["n_phase_sets"] for k, v in phasing.items()},
+           "ps_n50": {k: v["ps_n50"] for k, v in phasing.items()}, **counts}
+    emit(row)
+    if (first != serial or not second or recall < 0.95
+            or not {line.split("\t")[1] for line in second} <= sites):
+        raise AssertionError(f"scripts long_phase: {row}")
+
+    # split_realigned_bam and filter_assigned_reads on the evidence BAM
+    evidence = os.path.join(tmp, "bamout_default_gate.bam")
+    n, tags = bam_reads(evidence)
+    prefix = os.path.join(d, "hp")
+    split_realigned_bam.main(["-b", evidence, "-o", prefix])
+    split = {}
+    for name in sorted(os.listdir(d)):
+        if name.startswith("hp_") and name.endswith(".bam"):
+            key = name[3:-4]
+            m, got = bam_reads(os.path.join(d, name))
+            split[key] = m
+            want = None if key == "R" else ",".join(key.split("_"))
+            if any((None if t is None else str(t)) != want for t in got):
+                raise AssertionError(f"scripts split: {name} holds reads of "
+                                     "another HP")
+    assigned = os.path.join(d, "assigned.bam")
+    filter_assigned_reads.main(["-I", evidence, "-O", assigned])
+    kept, kept_tags = bam_reads(assigned)
+    unique = sum(t is not None and "," not in str(t) for t in tags)
+    row = {"phase": "scripts", "script": "split_and_filter",
+           "evidence_reads": n, "split_bams": split, "assigned_reads": kept,
+           "uniquely_assigned_in_evidence": unique}
+    emit(row)
+    if sum(split.values()) != n or kept != unique or not kept:
+        raise AssertionError(f"scripts split/filter: {row}")
+
+    # train_forest --synthetic, then the forest in --forest-model
+    forest = os.path.join(d, "trained.npz")
+    reset_counts()
+    t0 = time.perf_counter()
+    train_forest.main(["--synthetic", "--kb", "30", "--seeds", "101", "202",
+                       "--trees", "20", "-o", forest, "--device", device])
+    train_s = time.perf_counter() - t0
+    counts = read_counts()
+    launches += counts["launches"]["pairhmm"]
+    lines, run_row = run_caller_cli(d, "scripts", "trained_forest",
+                                    ["-R", inputs["fa"], "-I", inputs["bam"],
+                                     "--forest-model", forest], {}, device,
+                                    True)
+    launches += run_row["launches"]["pairhmm"]
+    row = {"phase": "scripts", "script": "train_forest", "train_s": train_s,
+           "train_launches": counts["launches"],
+           "forest_run_wall_s": run_row["wall_s"],
+           "forest_run_records": len(lines),
+           "forest_run_pass": run_row["pass_records"]}
+    emit(row)
+    if len(lines) != len(serial) or not all(
+            "RFGQ" in line.split("\t")[8] for line in lines):
+        raise AssertionError(f"scripts train_forest: {row}")
+    return launches
+
+
+# what the reference CLI (octopus_tpu, JAX on the CPU) reaches on the
+# polyclone and cell modes' inputs, by bench_e2e_multi.py's own measures
+# (`JAX_PLATFORMS=cpu python bench_e2e_multi.py polyclone|cell`): every
+# trunk and private site of the 3 clones, the minor clone's too, no false
+# positive, 2 clones the most common CLONES; every germline site of the
+# cells, 7 of 8 somatics flagged SOMATIC and all 8 called, CELLS off by
+# 0.29 on average. The trio mode's are MULTI_BARS'
+BENCH_MULTI_BARS = {
+    "polyclone": {"trunk_recall": 1.0, "private_recall": 1.0,
+                  "minor_clone_recall": 1.0, "fp": 0, "clones_mode": 2},
+    "cell": {"germline_recall": 1.0, "somatic_recall": 0.875,
+             "somatic_called_any": 1.0, "fp": 0, "mean_cells_err": 0.29},
+    "trio": MULTI_BARS["trio"],
+}
+
+
+def phase_bench_multi(device="cuda"):
+    """octopus_tpu_torch.bench_e2e_multi.bench, the module's own path
+    (--threads 4: CPU-only pool workers, the parent on the card), for the
+    polyclone (50 kb, 3 clones at 120x), cell (30 kb, 8 cells at 12x) and
+    trio (100 kb, 30x) modes, each printing the module's line; the accuracy
+    must equal the reference CLI's on the same seed (BENCH_MULTI_BARS).
+    Returns #1's launches over the three runs."""
+    import os
+    import shutil
+    import tempfile
+    from octopus_tpu_torch import bench_e2e_multi
+    launches = 0
+    for kind, bars in BENCH_MULTI_BARS.items():
+        tmp = tempfile.mkdtemp(prefix=f"chip_smoke_bench_{kind}_")
+        for k in CLI_ENV_KEYS:
+            os.environ.pop(k, None)
+        try:
+            reset_counts()
+            line = bench_e2e_multi.bench(kind, tmp, device)
+            counts = read_counts()
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        print(json.dumps(line), flush=True)
+        emit({"phase": "bench_multi", "mode": kind, **counts})
+        launches += counts["launches"]["pairhmm"]
+        short = {k: (line[k], bar) for k, bar in bars.items()
+                 if line[k] != bar}
+        if short:
+            raise AssertionError(f"bench_multi {kind}: accuracy (got, the "
+                                 f"reference's) {short}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2185,6 +2605,8 @@ def main() -> int:
         exp_rows, exp_phase = phase_kernel_experiments()
     with timed("gate_sweep"):
         phase_gate_sweep()
+    with timed("bench"):
+        bench_launches, bench_err = phase_bench()
     with timed("main_path"):
         main_path_launches, main_path_err = phase_main_path()
     emit({"phase": "main_path_kernel_launches",
@@ -2207,8 +2629,16 @@ def main() -> int:
             csr_launches, csr_errs = phase_csr_tools_cli(cli_input, cli_tmp)
         with timed("cram_cli"):
             cram_launches = phase_cram_cli(cli_input, cli_tmp)
+        with timed("scripts"):
+            scripts_launches = phase_scripts(cli_input, cli_tmp)
     finally:
         shutil.rmtree(cli_tmp, ignore_errors=True)
+    with timed("bench_e2e"):
+        bench_e2e_launches = phase_bench_e2e()
+    with timed("bench_e2e_long"):
+        long_launches, long_err = phase_bench_e2e_long()
+    with timed("bench_scaling"):
+        phase_bench_scaling()
     with timed("sharded_kernels"):
         phase_sharded_kernels()
     with timed("vb_gate_sweep"):
@@ -2222,6 +2652,8 @@ def main() -> int:
     for kind in MULTI:
         with timed(f"{kind}_cli"):
             multi[kind] = phase_multi_cli(kind)
+    with timed("bench_multi"):
+        bench_multi_launches = phase_bench_multi()
     # the kernel experiments' launches on every product path: this process
     # since their own phase, and the two shard_cli processes
     exp_product = exp_launches()
@@ -2231,7 +2663,8 @@ def main() -> int:
     sources = {"pairhmm": "octopus_tpu_torch/csrc/pairhmm.cu",
                "pairhmm_lanes": "octopus_tpu_torch/csrc/pairhmm_lanes.cu",
                "pairhmm_cost": "octopus_tpu_torch/csrc/pairhmm_cost.cu"}
-    kept_errs = {"pairhmm": [main_path_err, cli_errs["pairhmm"],
+    kept_errs = {"pairhmm": [main_path_err, bench_err, long_err,
+                             cli_errs["pairhmm"],
                              deferred_err, csr_errs["pairhmm"],
                              cancer_errs["pairhmm"],
                              *(err for _, err in multi.values())],
@@ -2248,10 +2681,18 @@ def main() -> int:
     tool_paths = {k: {"csr_tools_cli": csr_launches.get(k, 0),
                       "cram_cli": cram_launches if k == "pairhmm" else 0}
                   for k in KERNELS}
+    # kernel #1 from the ported entry points: the bench module, the gate-0
+    # runs of bench_e2e and its long mode, the scripts and bench_e2e_multi's
+    # polyclone, cell and trio modes (default gates, the pool's parent)
+    entry_paths = {"bench": bench_launches, "bench_e2e": bench_e2e_launches,
+                   "bench_e2e_long": long_launches,
+                   "scripts": scripts_launches,
+                   "bench_multi": bench_multi_launches}
     launches = {k: cli_launches.get(k, 0) + sum(tool_paths[k].values())
                 for k in KERNELS}
     launches["pairhmm"] += (cancer_launches + sum(n for n, _ in multi.values())
-                            + sum(pool_paths.values()))
+                            + sum(pool_paths.values())
+                            + sum(entry_paths.values()))
     table = []
     for kernel in KERNELS:
         rows = kernel_rows[kernel]
@@ -2263,8 +2704,9 @@ def main() -> int:
             "replaces": REPLACES[kernel],
             # the gate-0 runs of the individual, CSR tools, cancer,
             # population and trio CLI paths through this kernel, the pool's
-            # parent, the shards and the CRAM runs; the cost kernel is on no
-            # path (as Pallas v2 is in the reference)
+            # parent, the shards, the CRAM runs and the ported entry points;
+            # the cost kernel is on no path (as Pallas v2 is in the
+            # reference)
             "launches": launches[kernel],
             "launches_by_path": {
                 "cli": cli_launches.get(kernel, 0),
@@ -2273,7 +2715,9 @@ def main() -> int:
                 **tool_paths[kernel],
                 "cancer_cli": cancer_launches if kernel == "pairhmm" else 0,
                 **{f"{k}_cli": n if kernel == "pairhmm" else 0
-                   for k, (n, _) in multi.items()}},
+                   for k, (n, _) in multi.items()},
+                **{k: n if kernel == "pairhmm" else 0
+                   for k, n in entry_paths.items()}},
             "max_abs_err": max(kept_errs[kernel]
                                + [r["max_abs_err"] for r in rows]),
             "ms": bench["wrapper_ms"],

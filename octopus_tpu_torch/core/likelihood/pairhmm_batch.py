@@ -69,6 +69,33 @@ THREADS = (1, 2, 4, 8, 16)   # csrc/pairhmm.cu: threads a pair
 # memory at (rows * D, B) int32 whatever the read length
 _COST_ROWS = 64
 
+# The least time the card could take for the pair-HMM (chip_smoke.py's
+# kernel table, bench.py's share of it): an NVIDIA H100 SXM5's int32 rate
+# (SMs x INT32 lanes x boost clock) and its HBM3 rate.
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+DRAM_BYTES_PER_S = 3.35e12
+# the fewest int32 instructions a band cell needs on sm_90, with the DPX
+# forms: match cost 6 (three compares, each with a predicated update), M 2
+# (VIMNMX3 and an add), I 3 (an add, VIADDMNMX, nuc_prior), deletion open 2
+# (a minimum and an add), deletion chain 1 (VIADDMNMX)
+MATCH_COST_OPS = 6
+OPS_PER_CELL = MATCH_COST_OPS + 2 + 3 + 2 + 1
+
+
+def pairhmm_bound(B: int, R: int, pad: int) -> tuple[float, str]:
+    """Least time, in ms, for B pairs of R rows at `pad`, and what binds it
+    ("operations" or "bytes"): the larger of OPS_PER_CELL int32 ops per
+    cell (plus row 0's deletion chain and the last row's band minimum, 3
+    per lane each) over the int32 rate, and each track read once and the
+    scores written once over the memory rate."""
+    D = 2 * pad
+    W = R + 2 * pad - 1
+    ops = (OPS_PER_CELL * R + 6) * D * B
+    nbytes = (2 * R + 5 * W) * 4 * B + 4 * B
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    t_bytes = nbytes / DRAM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
 
 def _shift_down(a: torch.Tensor, fill: int) -> torch.Tensor:
     """Rows shift toward higher index: out[d] = a[d-1]; out[0] = fill."""
@@ -336,22 +363,26 @@ def pairhmm_scores_cost_plain(tgt, qual, win, opn, ext, mask, prior, *,
 
 @dataclass
 class KernelCounts:
-    """Launches of one CUDA kernel and the pairs they scored."""
+    """Launches of one CUDA kernel, the pairs they scored and the most rows
+    (read length R) of one launch."""
 
     launches: int = 0
     pairs: int = 0
+    max_rows: int = 0
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False,
                                   compare=False)
 
-    def add(self, pairs: int) -> None:
+    def add(self, pairs: int, rows: int = 0) -> None:
         with self._lock:
             self.launches += 1
             self.pairs += pairs
+            self.max_rows = max(self.max_rows, rows)
 
     def reset(self) -> None:
         with self._lock:
             self.launches = 0
             self.pairs = 0
+            self.max_rows = 0
 
 
 COUNTS = KernelCounts()          # csrc/pairhmm.cu (Pallas v12 and v9)
@@ -513,7 +544,7 @@ def _launch(name: str, tensors: list[torch.Tensor], B: int, R: int, W: int,
             err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    KERNEL_COUNTS[name].add(B)
+    KERNEL_COUNTS[name].add(B, R)
     return out
 
 

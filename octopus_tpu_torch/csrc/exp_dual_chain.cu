@@ -15,8 +15,8 @@
 // (csrc/exp_rows.cuh). K = 1 is the same code's one-pair baseline.
 //
 // What bounds it: the function is #1's, int32 operations (OPS_PER_CELL in
-// chip_smoke.py). A ring row costs 768 bytes of shared memory a pair, so an
-// SM holds ~295 pairs whatever K is: K trades warps (latency hiding across
+// pairhmm_batch.py). A ring row costs 768 bytes of shared memory a pair, so
+// an SM holds ~295 pairs whatever K is: K trades warps (latency hiding across
 // warps, the four schedulers of an SM) for independent chains in one
 // thread, and K = 4 leaves two warps an SM. Registers: 48 a pair for
 // M, I, D.

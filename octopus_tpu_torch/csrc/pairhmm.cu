@@ -24,7 +24,7 @@
 //
 // What bounds it on the H100. At the bench shape (65,536 pairs, R = 150,
 // D = 16) the function needs at least 14 int32 instructions a cell in the
-// fused form (OPS_PER_CELL in chip_smoke.py) against (2R + 5W)*4 bytes a
+// fused form (OPS_PER_CELL in pairhmm_batch.py) against (2R + 5W)*4 bytes a
 // pair read once: operations bind, and the kernel must keep the INT32 pipes
 // fed. At the main path's shapes (1-519 pairs, R = 160) the work is
 // thousands of times below the card's rate: a launch is latency, the chain

@@ -102,10 +102,10 @@ def write_sample_bam(tmp, name, hap_pieces_pair, n_ref, depth, read_len, rng,
     """Simulate a diploid sample from two haplotype piece-lists -> BAM path."""
     reads = sample_read_tuples(hap_pieces_pair, n_ref, depth, read_len, rng,
                                err=err)
-    return _write_bam(tmp, name, reads, contig, n_ref)
+    return write_reads_bam(tmp, name, reads, contig, n_ref)
 
 
-def _write_bam(tmp, name, reads, contig, n_ref):
+def write_reads_bam(tmp, name, reads, contig, n_ref):
     """Read tuples as a sorted, BAI-indexed BAM of one sample."""
     from ..basics.reads import make_read_batch
     from ..io.bam_writer import BamWriter, build_bai
@@ -179,18 +179,21 @@ def simulate_diploid(tmp, kb=100, depth=30, read_len=150, seed=11,
         kb=kb, depth=depth, read_len=read_len, seed=seed, spacing=spacing,
         err=err)
     fa = write_reference(tmp, seq)
-    return fa, _write_bam(tmp, sample, reads, "chr1", n), truth, n
+    return fa, write_reads_bam(tmp, sample, reads, "chr1", n), truth, n
 
 
 def simulate_tumour_normal(tmp, kb=60, depth=60, seed=7, vaf=0.25,
-                           read_len=150, n_somatic=14, err=0.001):
+                           read_len=150, n_somatic=14, err=0.001, min_gap=50):
     """Reference + NORMAL/TUMOUR BAMs + (germline dict, somatic dict).
 
     The normal is a diploid at depth // 2; the tumour mixes a somatic clone
     (SNVs on haplotype 0) into the normal diploid at read fraction 2*vaf,
-    giving expected somatic VAF = vaf. Draws the same random numbers in the
-    same order as the reference package's function of the same name.
-    Returns (fasta, normal BAM, tumour BAM, germline, somatic, length)."""
+    giving expected somatic VAF = vaf. A somatic SNV lands at least min_gap
+    bases from every germline variant and earlier somatic SNV. Draws the
+    same random numbers in the same order as the reference package's
+    function of the same name (min_gap 50), and as bench_e2e_multi.py's
+    bench_cancer (min_gap 51). Returns (fasta, normal BAM, tumour BAM,
+    germline, somatic, length)."""
     from ..basics.reads import FLAG_REVERSE
 
     rng = np.random.default_rng(seed)
@@ -213,8 +216,8 @@ def simulate_tumour_normal(tmp, kb=60, depth=60, seed=7, vaf=0.25,
     somatic = {}
     for _ in range(n_somatic):
         pos = int(rng.integers(2000, n - 2000))
-        if (any(abs(pos - g) < 50 for g in germline)
-                or any(abs(pos - s) < 50 for s in somatic)):
+        if (any(abs(pos - g) < min_gap for g in germline)
+                or any(abs(pos - s) < min_gap for s in somatic)):
             continue
         base = seq[pos]
         alt = "ACGT"[("ACGT".index(base) + 2) % 4]
@@ -235,7 +238,7 @@ def simulate_tumour_normal(tmp, kb=60, depth=60, seed=7, vaf=0.25,
         p, cig, s = r
         reads.append((p, cig, s, [37] * read_len, 60,
                       FLAG_REVERSE if rng.random() < 0.5 else 0))
-    bam_t = _write_bam(tmp, "TUMOUR", reads, "chr1", n)
+    bam_t = write_reads_bam(tmp, "TUMOUR", reads, "chr1", n)
     return fa, bam_n, bam_t, germline, somatic, n
 
 
@@ -319,7 +322,7 @@ def simulate_population(tmp, kb=100, depth=30, seed=9, n_samples=3,
     return fa, bams, truth, n
 
 
-def _mixture_reads(flats, weights, n_reads, read_len, rng):
+def mixture_reads(flats, weights, n_reads, read_len, rng):
     """Reads from flattened haplotypes drawn at the given weights."""
     from ..basics.reads import FLAG_REVERSE
     cum = np.cumsum(weights) / np.sum(weights)
@@ -355,9 +358,9 @@ def simulate_polyclone(tmp, kb=12, depth=100, read_len=150, seed=31):
     for p, ci in private.items():
         clones[ci][p] = "G" if seq[p] != "G" else "C"
     flats = [flatten_haplotype(c) for c in clones]
-    reads = _mixture_reads(flats, [0.5, 0.3, 0.2], int(n * depth / read_len),
+    reads = mixture_reads(flats, [0.5, 0.3, 0.2], int(n * depth / read_len),
                            read_len, rng)
-    return fa, _write_bam(tmp, "POOL", reads, "chr1", n), trunk, private, n
+    return fa, write_reads_bam(tmp, "POOL", reads, "chr1", n), trunk, private, n
 
 
 def simulate_cells(tmp, kb=9, depth=15, read_len=150, seed=37,
@@ -383,9 +386,9 @@ def simulate_cells(tmp, kb=9, depth=15, read_len=150, seed=37,
     for ci, cl in enumerate(clone_of_cell):
         flats = [flatten_haplotype(h) for h in (founder if cl == 0 else clone)]
         w0 = float(rng.beta(2.0, 2.0))
-        reads = _mixture_reads(flats, [w0, 1 - w0], int(n * depth / read_len),
+        reads = mixture_reads(flats, [w0, 1 - w0], int(n * depth / read_len),
                                read_len, rng)
-        bams.append(_write_bam(tmp, f"CELL{ci}", reads, "chr1", n))
+        bams.append(write_reads_bam(tmp, f"CELL{ci}", reads, "chr1", n))
     return fa, bams, germ, som, n
 
 
@@ -413,5 +416,5 @@ __all__ = [
     "write_reference", "write_sample_bam", "random_sequence",
     "random_variant", "apply_variant", "simulate_diploid",
     "simulate_diploid_reads", "simulate_tumour_normal", "simulate_polyclone",
-    "simulate_cells", "truth_to_vcf",
+    "simulate_cells", "truth_to_vcf", "write_reads_bam", "mixture_reads",
 ]

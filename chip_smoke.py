@@ -31,12 +31,15 @@ Twenty-two phases, each printing JSON lines:
    experiments/ (octopus_tpu_torch/kernel_experiments/, csrc/exp_*.cu,
    built in phase 1 beside the others), on no product path, at their bench
    shape (65,536 pairs, R = 150, band 8, their random tracks; i16 at
-   (16, 1,048,576) int16): every K/blk/pack variant of each experiment's
-   __main__ against its plain version and the four scorers against kernel
-   #1 on the same tracks, error 0; kernel and wrapper times, #1's beside
-   them, plain times, bounds, registers and spills, and the i16 loop's
-   SASS (cuobjdump): packed .S16x2 instructions and instructions an
-   element a round;
+   (16, 1,048,576) int16): every K/pack variant of each experiment's
+   __main__, and v11's and v13's Hopper designs beside their first ports,
+   against its plain version and the four scorers against kernel #1 on
+   the same tracks, error 0 (v11 and v13 also on the edge inputs of
+   kernel_experiments._common.EDGE_CASES); kernel and wrapper times, #1's
+   beside them, plain times, bounds; each scorer variant's registers,
+   spills, SASS size, its row loop's shared- and device-memory loads
+   (cuobjdump) and what one SM holds (occupancy); the i16 loop's SASS:
+   packed .S16x2 instructions and instructions an element a round;
 3. gate_sweep: job sets of 1 to 1024 pairs (R = 160, band 8) scored by the
    host DP and by the card call with its copies; the crossover;
 4. main_path: a simulated 30x diploid sample is called in memory through
@@ -228,6 +231,7 @@ TEMPLATE_PARAMS = {"pairhmm": ("D", "T"),
                    "exp_v13": ("K", "L", "S"),
                    "exp_v10": ("K", "L"),
                    "exp_v11": ("BLK",),
+                   "exp_v11_regs": ("L", "P"),
                    "exp_i16": ("PACK",)}
 
 
@@ -238,23 +242,33 @@ def template_key(function: str, kernel: str) -> str:
     values = re.findall(r"L[ib](\d+)E", m.group(1)) if m else []
     if "_wave_kernel" in function:
         kernel += "_wave"
+    if "regs_kernel" in function:
+        kernel += "_regs"
     return "_".join(f"{k}{v}" for k, v in zip(TEMPLATE_PARAMS[kernel], values))
 
 
 def ptxas_table(log: str, kernel: str) -> dict:
-    """Registers and spill bytes per instantiation (e.g. "D16_T4") from
-    nvcc's -Xptxas -v log."""
+    """Registers, stack frame and spill bytes per instantiation (e.g.
+    "D16_T4") from nvcc's -Xptxas -v log; a device function compiled out
+    of line (a "Function properties" block of no entry function) is not
+    counted in the kernel's."""
     ptxas = {}
-    current = None
+    current = props = None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             current = template_key(line, kernel) or None
-        elif current and "spill stores" in line:
+            props = None
+        elif "Function properties for" in line:
+            props = template_key(line, kernel) or None
+        elif current and props == current and "spill stores" in line:
             parts = line.split()
-            ptxas[current] = {"spill_store_bytes": int(parts[4]),
-                              "spill_load_bytes": int(parts[8])}
+            ptxas.setdefault(current, {}).update(
+                stack_frame_bytes=int(parts[0]),
+                spill_store_bytes=int(parts[4]),
+                spill_load_bytes=int(parts[8]))
         elif current and "Used" in line and "registers" in line:
-            ptxas[current]["registers"] = int(line.split("Used")[1].split()[0])
+            ptxas.setdefault(current, {})["registers"] = int(
+                line.split("Used")[1].split()[0])
     return ptxas
 
 
@@ -656,9 +670,39 @@ EXPERIMENTS = {
     "exp_i16": "experiments/i16_probe.py:35",
 }
 # the variant of each experiment in the kernels line: its experiment's
-# default keyword
-EXP_DEFAULT = {"exp_dual_chain": "K2", "exp_v10": "K4", "exp_v11": "blk1",
-               "exp_v13": "K4x2", "exp_i16": "pack2"}
+# default keyword, or (v11, v13) the Hopper design its entry point launches
+EXP_DEFAULT = {"exp_dual_chain": "K2", "exp_v10": "K4",
+               "exp_v11": "regs_ring_p4", "exp_v13": "shared_K1",
+               "exp_i16": "pack2"}
+# rows a row-loop iteration as the source writes it, for each Schedule of
+# csrc/exp_rows.cuh: UNROLL2, TWO_ROWS, ONE_ROW, SHARED2
+SCHEDULE_ROWS = {0: 2, 1: 2, 2: 1, 3: 2}
+
+
+def exp_build(lib: str, variant: str):
+    """A scorer variant's instantiation key in the ptxas report and the
+    SASS, the rows and pairs an iteration of its row loop as the source
+    writes it, and its occupancy query (experiment and arguments), from the
+    wrappers' own variant tables; None for v10 and i16."""
+    from octopus_tpu_torch.kernel_experiments import v11_kernel, v13_unroll2
+    if lib == "exp_dual_chain":
+        K = int(variant.lstrip("K"))
+        return f"K{K}_L32_S0", SCHEDULE_ROWS[0], K, ("dual_chain", K)
+    if lib == "exp_v13":
+        K, S = v13_unroll2.VARIANTS[variant]
+        return f"K{K}_L32_S{S}", SCHEDULE_ROWS[S], K, ("v13", K, S)
+    if lib == "exp_v11":
+        arg = v11_kernel.VARIANTS[variant]
+        kind, n = re.fullmatch(r"(regs_ring_p|shfl_blk)(\d+)",
+                               variant).groups()
+        if kind == "shfl_blk":
+            return f"BLK{n}", 1, 1, ("v11", arg)
+        return f"L32_P{n}", int(n), 1, ("v11", arg)
+    return None
+
+
+# pairs of the edge checks: a multiple of every variant's 128 K
+EDGE_B = 1536
 # the i16 probe's least int work an element, a fused DPX form counted as
 # one operation as in OPS_PER_CELL: 7 a round (m + a and its min, the min
 # with the shifted m, i + 2, the select, three prefix mins), and once the
@@ -712,6 +756,49 @@ def sass_loop(body) -> dict:
             "mnemonics": dict(collections.Counter(ops).most_common())}
 
 
+def mnemonic(text: str) -> str:
+    return text.split()[1] if text.startswith("@") else text.split()[0]
+
+
+def sass_counts(ops) -> dict:
+    """Instructions, shared-memory loads (LDS), device-memory loads (LDG),
+    cp.async copies (LDGSTS), register moves (MOV) and barriers (BAR)
+    among SASS mnemonics, and the most common mnemonics."""
+    ops = list(ops)
+    return {"instructions": len(ops),
+            "lds": sum(o.startswith("LDS") for o in ops),
+            "ldg": sum(o.startswith("LDG") and not o.startswith("LDGSTS")
+                       for o in ops),
+            "ldgsts": sum(o.startswith("LDGSTS") for o in ops),
+            "mov": sum(o.split(".")[0] == "MOV" or o.startswith("IMAD.MOV")
+                       for o in ops),
+            "bar": sum(o.startswith("BAR") for o in ops),
+            "top": dict(collections.Counter(ops).most_common(10))}
+
+
+def sass_row_loop(body) -> dict:
+    """The backward-branch loop of one function's SASS with the most
+    instructions of its own (none of a loop nested in it): a scorer's row
+    loop. Its counts (sass_counts)."""
+    loops = []
+    for addr, text in body:
+        b = re.search(r"\bBRA\s+(0x[0-9a-f]+)", text)
+        if b and int(b.group(1), 16) < addr:
+            loops.append((int(b.group(1), 16), addr))
+
+    def own(lo, hi):
+        inner = [r for r in loops if r != (lo, hi) and lo <= r[0]
+                 and r[1] <= hi]
+        return [t for a, t in body if lo <= a <= hi
+                and not any(x <= a <= y for x, y in inner)]
+
+    if not loops:
+        raise AssertionError("no loop in the SASS")
+    return sass_counts(mnemonic(t) for t in max((own(*r) for r in loops),
+                                                key=len)
+                       if not t.startswith("@!PT"))
+
+
 def i16_sass(functions: dict) -> dict:
     """Per pack, the 50-round loop's SASS: instructions, .S16x2 ones, and
     instructions an element a round (16 rows x pack columns a thread)."""
@@ -728,10 +815,13 @@ def i16_sass(functions: dict) -> dict:
 def phase_kernel_experiments(seed=SEED):
     """The five kernel experiments at their bench shape (65,536 pairs, R =
     150, band 8; i16 at (16, 1,048,576)): every variant of each
-    experiment's __main__ against its plain version and, for the four
-    scorers, against kernel #1 on the same tracks, error 0; kernel and
-    wrapper CUDA-event medians of 7, #1's beside them, plain of 5; the
-    build's registers and spills; the i16 loop's SASS."""
+    experiment's __main__ (v11 and v13: their Hopper designs and first ports)
+    against its plain version and, for the four scorers, against kernel #1
+    on the same tracks, error 0, also (v11, v13) on EDGE_CASES; kernel and
+    wrapper CUDA-event medians of 7, #1's beside them (and dual_chain K1's
+    and K2's beside each v11 and v13 variant), plain of 5; each
+    variant's registers, spills, SASS size, row loop's loads and
+    occupancy; the i16 loop's SASS."""
     import torch
     from octopus_tpu_torch import _build
     from octopus_tpu_torch.core.likelihood import pairhmm_batch as pb
@@ -744,51 +834,78 @@ def phase_kernel_experiments(seed=SEED):
     bound_ms, bound_by = pairhmm_bound(B, R, pad)
     rows = []
 
-    def scorer_variants(t):
-        """library -> {variant: (kernel launch on prepared inputs, wrapper
-        call, plain version)} for kernel-layout CUDA tracks t."""
-        def plain():
-            return xc.plain_v9(t, pad, nuc)
-
-        pre = v11_kernel.v11_pre(t[4])
-        t10 = v10_kernel.v10_tracks(*t, nuc_prior=nuc)
+    def scorers():
+        """library -> {variant: (kernel launch, wrapper call)}, each a
+        function of kernel-layout CUDA tracks, for the v9 scorers."""
         out = {"exp_dual_chain": {
-            f"K{K}": (lambda K=K: dual_chain.scores_dual_cuda(*t, K=K),
-                      lambda K=K: dual_chain.scores_dual(*t, K=K), plain)
+            f"K{K}": (lambda t, K=K: dual_chain.scores_dual_cuda(*t, K=K),
+                      lambda t, K=K: dual_chain.scores_dual(*t, K=K))
             for K in dual_chain.KERNEL_K}}
-        out["exp_v11"] = {
-            f"blk{b}": (lambda b=b: v11_kernel.launch_v11(
-                t, pre, pad=pad, nuc_prior=nuc, blk=b),
-                lambda b=b: v11_kernel.scores_v11(*t, blk=b), plain)
-            for b in v11_kernel.BLK_VARIANTS}
-        # v13's two rows an iteration (x2, its experiment's kernel) and the
-        # same kernel one row an iteration (x1, launched only as a kernel);
-        # K = 6 takes the first 65,280 pairs, the most that 128 * 6 divides
+        # v11: the new designs without a prologue (the entry point runs the
+        # default); the first port's shfl variants with the wrapper's
+        # prologue, pre made once for the kernel time
+        out["exp_v11"] = {}
+        last_pre = []                 # [ext track, its pre]
+
+        def pre_of(t):
+            if not last_pre or last_pre[0] is not t[4]:
+                last_pre[:] = [t[4], v11_kernel.v11_pre(t[4])]
+            return last_pre[1]
+
+        for v in v11_kernel.VARIANTS:
+            if v.startswith("shfl"):
+                def kernel(t, v=v):
+                    return v11_kernel.launch_v11(t, pre_of(t), pad=pad,
+                                                 nuc_prior=nuc, variant=v)
+
+                def call(t, v=v):
+                    return v11_kernel.shfl_call(t, variant=v)
+            else:
+                def kernel(t, v=v):
+                    return v11_kernel.launch_v11(t, pad=pad, nuc_prior=nuc,
+                                                 variant=v)
+                call = ((lambda t: v11_kernel.scores_v11(*t))
+                        if v == v11_kernel.DEFAULT_VARIANT else kernel)
+            out["exp_v11"][v] = (kernel, call)
         out["exp_v13"] = {}
-        for K in v13_unroll2.K_VARIANTS:
-            tk, plain_k = t, plain
-            if B % (xc.LANES * K):
-                tk = [a[:, :B - B % (xc.LANES * K)].contiguous() for a in t]
-
-                def plain_k(tk=tk):
-                    return xc.plain_v9(tk, pad, nuc)
-
-            for two in (True, False):
-                launch = (lambda K=K, two=two, tk=tk: v13_unroll2.launch_v13(
-                    tk, pad=pad, nuc_prior=nuc, K=K, two_rows=two))
-                call = ((lambda K=K, tk=tk: v13_unroll2.scores_v13(*tk, K=K))
-                        if two else launch)
-                out["exp_v13"][f"K{K}x{2 if two else 1}"] = (launch, call,
-                                                             plain_k)
-
-        def v10_plain():
-            return v10_kernel.v10_rows_plain(t10, pad=pad)
-
-        out["exp_v10"] = {
-            f"K{K}": (lambda K=K: v10_kernel.launch_v10(t10, pad=pad, K=K),
-                      lambda K=K: v10_kernel.scores_v10(*t, K=K), v10_plain)
-            for K in v10_kernel.K_VARIANTS}
+        for v in v13_unroll2.VARIANTS:
+            def kernel(t, v=v):
+                return v13_unroll2.launch_v13(t, pad=pad, nuc_prior=nuc,
+                                              variant=v)
+            call = ((lambda t: v13_unroll2.scores_v13(*t))
+                    if v == v13_unroll2.DEFAULT_VARIANT else kernel)
+            out["exp_v13"][v] = (kernel, call)
         return out
+
+    def v10_variants(t10):
+        return {f"K{K}": (lambda t, K=K: v10_kernel.launch_v10(t10, pad=pad,
+                                                              K=K),
+                          lambda t, K=K: v10_kernel.scores_v10(*t, K=K))
+                for K in v10_kernel.K_VARIANTS}
+
+    def pairs_of(lib, variant, Bt):
+        """The most pairs up to Bt that the variant's 128 K divides (K = 6
+        takes 65,280 of the bench's pairs)."""
+        K = (v13_unroll2.VARIANTS[variant][0] if lib == "exp_v13" else 1)
+        return Bt - Bt % (xc.LANES * K)
+
+    variants = scorers()
+    # the edge inputs (EDGE_CASES) through every v11 and v13 variant: error
+    # 0 against the plain version and #1 on the same tracks
+    edge = {}
+    for rows_e, kind in xc.EDGE_CASES:
+        t = xc.as_tracks(xc.edge_inputs(EDGE_B, rows_e, kind, seed=seed),
+                         "cuda")
+        want = xc.plain_v9(t, pad, nuc)
+        one = pb.pairhmm_scores_cuda(*(a.t() for a in t), pad=pad)
+        for lib in ("exp_v11", "exp_v13"):
+            for variant, (kernel, _) in variants[lib].items():
+                got = kernel(t)
+                torch.cuda.synchronize()
+                e = edge.setdefault((lib, variant), [0, 0, []])
+                e[0] = max(e[0], int((got.long() - want.long()).abs().max()))
+                e[1] = max(e[1], int((got.long() - one.long()).abs().max()))
+                e[2].append(f"R{rows_e}_{kind}")
 
     # dual_chain's bench draws window bases from [0, 4), the others from
     # [0, 5) (N included)
@@ -799,39 +916,57 @@ def phase_kernel_experiments(seed=SEED):
         one = pb.pairhmm_scores_cuda(*bm, pad=pad)
         one_ms = cuda_ms(lambda: pb.launch_kernel(bm, pad=pad))
         one_call_ms = cuda_ms(lambda: pb.pairhmm_scores_cuda(*bm, pad=pad))
+        t10 = v10_kernel.v10_tracks(*t, nuc_prior=nuc)
         plains = {}
-        variants = scorer_variants(t)
         for lib in libs:
-            for variant, (kernel, wrapper, plain) in variants[lib].items():
-                key = id(plain)
+            vs = v10_variants(t10) if lib == "exp_v10" else variants[lib]
+            for variant, (kernel, wrapper) in vs.items():
+                Bv = pairs_of(lib, variant, B)
+                tk = t if Bv == B else [a[:, :Bv].contiguous() for a in t]
+                key = (lib == "exp_v10", Bv)
                 if key not in plains:
-                    want = plain()
-                    plains[key] = (want, cuda_ms(plain, reps=5))
+                    plain = ((lambda: v10_kernel.v10_rows_plain(t10, pad=pad))
+                             if lib == "exp_v10" else
+                             (lambda tk=tk: xc.plain_v9(tk, pad, nuc)))
+                    plains[key] = (plain(), cuda_ms(plain, reps=5))
                 want, plain_ms = plains[key]
-                got_k, got_w = kernel(), wrapper()
+                got_k, got_w = kernel(tk), wrapper(tk)
                 torch.cuda.synchronize()
                 err = max(int((g.long() - want.long()).abs().max())
                           for g in (got_k, got_w))
-                Bv = got_w.shape[0]        # pairs are independent
                 err_one = int((got_w.long() - one[:Bv].long()).abs().max())
                 row = {"kernel": lib, "variant": variant, "B": Bv, "R": R,
                        "pad": pad, "max_abs_err": err,
                        "max_abs_err_vs_1": err_one,
-                       "kernel_ms": cuda_ms(kernel),
-                       "wrapper_ms": cuda_ms(wrapper),
+                       "kernel_ms": cuda_ms(lambda: kernel(tk)),
+                       "wrapper_ms": cuda_ms(lambda: wrapper(tk)),
                        "pairhmm_1_kernel_ms": one_ms,
                        "pairhmm_1_call_ms": one_call_ms,
                        "plain_ms": plain_ms, "bound_ms": bound_ms,
                        "bound_by": bound_by}
+                if lib in ("exp_v11", "exp_v13"):
+                    # the base both redesigns started from, timed right
+                    # after the variant on the same tracks: walls drift
+                    # ~10-20% between the phase's passes
+                    for K in (1, 2):
+                        row[f"dual_K{K}_kernel_ms"] = cuda_ms(
+                            lambda K=K: dual_chain.scores_dual_cuda(*tk, K=K))
                 row["m_pairs_per_s"] = Bv / row["wrapper_ms"] / 1e3
                 if Bv != B:
                     row["bound_ms"], row["bound_by"] = pairhmm_bound(Bv, R, pad)
+                row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
                 if lib == "exp_v10":
                     row["bytes_bound_ms"] = v10_bytes_bound(B, R, pad)
+                if (lib, variant) in edge:
+                    e_err, e_one, cases = edge[(lib, variant)]
+                    row.update(edge_max_abs_err=e_err,
+                               edge_max_abs_err_vs_1=e_one, edge_cases=cases,
+                               edge_B=EDGE_B)
+                    err = max(err, e_err, e_one)
                 rows.append(row)
                 if err or err_one:
                     raise AssertionError(f"kernel_experiments: {row}")
-        del t, bm, variants, plains
+        del t, bm, t10, plains
         torch.cuda.empty_cache()
 
     # the i16 probe: the experiment's own input, a wrapping one, the bench
@@ -878,6 +1013,31 @@ def phase_kernel_experiments(seed=SEED):
                        "ptxas": ptxas_table(_build.BUILDS[lib]["log"], lib),
                        "sass_instructions": {template_key(f, lib): len(body)
                                              for f, body in sass[lib].items()}}
+    # each scorer variant's build beside its times: registers, spills, SASS
+    # size, its row loop's loads, what one SM holds
+    for row in rows:
+        build = exp_build(row["kernel"], row["variant"])
+        if build is None:
+            continue
+        key, rows_an_iteration, pairs, (experiment, *query) = build
+        lib = row["kernel"]
+        ptx = builds[lib]["ptxas"][key]
+        body = next(b for f, b in sass[lib].items()
+                    if template_key(f, lib) == key)
+        loop = sass_row_loop(body)
+        loop.update(rows_an_iteration=rows_an_iteration,
+                    pairs_a_thread=pairs)
+        # a row of one pair: its 16 cells
+        for k in ("instructions", "lds", "ldg"):
+            loop[f"{k}_a_pair_row"] = loop[k] / (rows_an_iteration * pairs)
+        row.update(registers=ptx["registers"],
+                   spill_bytes=ptx["spill_store_bytes"]
+                   + ptx["spill_load_bytes"],
+                   stack_frame_bytes=ptx["stack_frame_bytes"],
+                   sass_instructions=len(body),
+                   sass=sass_counts(mnemonic(t) for _, t in body
+                                    if not t.startswith("@!PT")),
+                   row_loop=loop, **xc.occupancy(experiment, *query))
     launches = exp_launches()
     emit({"phase": "kernel_experiments", "rows": rows, "builds": builds,
           "i16_sass": i16_sass(sass["exp_i16"]), "launches": launches})

@@ -51,3 +51,18 @@ extern "C" int exp_dual_launch(const int* tgt, const int* qual, const int* win,
   }
 #undef EXP_ARGS
 }
+
+// out = {blocks an SM, threads a block, shared memory a block, pairs a
+// block} of exp_dual_launch's kernel for K.
+extern "C" int exp_dual_occupancy(int K, int* out) {
+  switch (K) {
+    case 1:
+      return (int)occupancy_v9_rows<1, 32, UNROLL2>(out);
+    case 2:
+      return (int)occupancy_v9_rows<2, 32, UNROLL2>(out);
+    case 4:
+      return (int)occupancy_v9_rows<4, 32, UNROLL2>(out);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}

@@ -37,6 +37,27 @@ __device__ __forceinline__ void cp_async16(int* dst, const int* src) {
 // never runs indexes inside the array
 __host__ __device__ constexpr int up1(int k) { return k + 1 < D ? k + 1 : k; }
 
+// v9's step on one cell of one thread's pair: read base ty and quality q,
+// window values w, mk, pr, o, e at the cell's position, m_up and i_up the
+// M and I of the diagonal above (INF past the band, row 0's parity mask on
+// row 1); M, I and Dl are the cell's, updated in place; mi_prev and d_prev
+// carry the deletion chain down the row's diagonals.
+__device__ __forceinline__ void v9_cell(int ty, int q, int w, int mk, int pr,
+                                        int o, int e, int m_up, int i_up,
+                                        int nuc_prior, int& M, int& I,
+                                        int& Dl, int& mi_prev, int& d_prev) {
+  int cost = (mk == ty) ? min(q, pr) : q;
+  cost = (ty == w) ? 0 : cost;
+  cost = (w == N_CODE) ? min(cost, N_SCORE) : cost;
+  const int mn = cost + min3(M, I, Dl);
+  const int in = nuc_prior + addmin(i_up, e, m_up + o);
+  M = mn;
+  I = in;
+  d_prev = addmin(d_prev, e, mi_prev + o);
+  Dl = d_prev;
+  mi_prev = min(mn, in);
+}
+
 // Rings of NW window tracks and the two read tracks for a block of P pairs,
 // chunks of C rows; RW window rows and RT read rows a ring (powers of two).
 template <int NW, int P, int C_ = 8, int RW_ = 32, int RT_ = 16>
@@ -125,6 +146,25 @@ struct V9Pairs {
     }
   }
 
+  // one cell of pair g: diagonal k of a row with read base ty and quality
+  // q, window values w, mk, pr, o, e at its position; mi_prev and d_prev
+  // carry the deletion chain down the row's diagonals
+  __device__ __forceinline__ void cell(int g, int k, int ty, int q, int w,
+                                       int mk, int pr, int o, int e,
+                                       bool row1, int& mi_prev, int& d_prev,
+                                       int nuc_prior) {
+    int m_up = INF, i_up = INF;
+    if (k + 1 < D) {
+      m_up = row1 ? (((k + 1) & 1) ? 0 : INF) : M[g][up1(k)];
+      i_up = I[g][up1(k)];
+    }
+    v9_cell(ty, q, w, mk, pr, o, e, m_up, i_up, nuc_prior, M[g][k], I[g][k],
+            Dl[g][k], mi_prev, d_prev);
+  }
+
+  // One row. Its body is the yardstick kernels' (exp_dual_chain.cu) and
+  // keeps its own copy of v9_cell's arithmetic, so that their code stays
+  // as it was measured.
   __device__ __forceinline__ void row(const int* s, int lane, int y,
                                       int nuc_prior) {
     const int* sw = Rings::window(s, WIN) + lane;
@@ -170,6 +210,49 @@ struct V9Pairs {
     }
   }
 
+  // rows y and y+1 in one pass over window positions y-1 .. y+D-1: the
+  // value at position y-1+k is row y's diagonal k and row y+1's diagonal
+  // k-1, so each is read from shared memory once for two cells. Row y+1's
+  // cell k-1 runs right after row y's cell k, the last of row y that it
+  // reads (its M and I above, k; its M, I and D, k-1), so both rows update
+  // M, I and D in place.
+  __device__ __forceinline__ void rows2(const int* s, int lane, int y,
+                                        int nuc_prior) {
+    const int* sw = Rings::window(s, WIN) + lane;
+    const int* sk = Rings::window(s, MASK) + lane;
+    const int* sp = Rings::window(s, PRIOR) + lane;
+    const int* so = Rings::window(s, OPN) + lane;
+    const int* se = Rings::window(s, EXT) + lane;
+    const int rt0 = ((y - 1) & (Rings::RT - 1)) * P + lane;
+    const int rt1 = (y & (Rings::RT - 1)) * P + lane;
+    const bool row1 = (y == 1);
+    int ty0[K], q0[K], ty1[K], q1[K], mi0[K], d0[K], mi1[K], d1[K];
+#pragma unroll
+    for (int g = 0; g < K; ++g) {
+      ty0[g] = s[Rings::TGT + rt0 + g * L];
+      q0[g] = s[Rings::QUAL + rt0 + g * L];
+      ty1[g] = s[Rings::TGT + rt1 + g * L];
+      q1[g] = s[Rings::QUAL + rt1 + g * L];
+      mi0[g] = d0[g] = mi1[g] = d1[g] = INF;
+    }
+#pragma unroll
+    for (int k = 0; k <= D; ++k) {
+      const int j = ((y - 1 + k) & (Rings::RW - 1)) * P;
+#pragma unroll
+      for (int g = 0; g < K; ++g) {
+        const int jg = j + g * L;
+        const int w = sw[jg], mk = sk[jg], pr = sp[jg], o = so[jg],
+                  e = se[jg];
+        if (k < D)
+          cell(g, k < D ? k : 0, ty0[g], q0[g], w, mk, pr, o, e, row1, mi0[g],
+               d0[g], nuc_prior);
+        if (k > 0)
+          cell(g, k > 0 ? k - 1 : 0, ty1[g], q1[g], w, mk, pr, o, e, false,
+               mi1[g], d1[g], nuc_prior);
+      }
+    }
+  }
+
   __device__ __forceinline__ void store(int* out, int first, int lane) const {
 #pragma unroll
     for (int g = 0; g < K; ++g) {
@@ -182,9 +265,11 @@ struct V9Pairs {
 };
 
 // How the row loop of a chunk runs: #pragma unroll 2 (csrc/pairhmm.cu's
-// own), two rows an iteration with an odd last row peeled (v13), or one row
-// an iteration under #pragma unroll 1 (v13's comparison).
-enum Schedule { UNROLL2 = 0, TWO_ROWS = 1, ONE_ROW = 2 };
+// own), two rows an iteration with an odd last row peeled (v13), one row an
+// iteration under #pragma unroll 1 (v13's comparison), or two rows an
+// iteration in one pass that shares their window loads (`rows2`), an odd
+// last row peeled (v13's Hopper design).
+enum Schedule { UNROLL2 = 0, TWO_ROWS = 1, ONE_ROW = 2, SHARED2 = 3 };
 
 // The v9-arithmetic kernel of exp_dual_chain.cu and exp_v13.cu: a block of
 // L lanes, K pairs a lane (pairs first + g*L + lane), P = K*L pairs a block.
@@ -224,6 +309,11 @@ v9_rows_kernel(const int* __restrict__ tgt, const int* __restrict__ qual,
         st.row(smem, lane, y + 1, nuc_prior);
       }
       if (y == y_end) st.row(smem, lane, y, nuc_prior);  // odd last row
+    } else if constexpr (SCHED == SHARED2) {
+      int y = c * C + 1;
+#pragma unroll 1
+      for (; y < y_end; y += 2) st.rows2(smem, lane, y, nuc_prior);
+      if (y == y_end) st.row(smem, lane, y, nuc_prior);  // odd last row
     } else {
 #pragma unroll 1
       for (int y = c * C + 1; y <= y_end; ++y) st.row(smem, lane, y, nuc_prior);
@@ -250,6 +340,24 @@ cudaError_t launch_v9_rows(const int* tgt, const int* qual, const int* win,
   v9_rows_kernel<K, L, SCHED><<<B / P, L, smem, stream>>>(
       tgt, qual, win, opn, ext, mask, prior, out, B, R, W, nuc_prior);
   return cudaGetLastError();
+}
+
+// What one block of v9_rows_kernel<K, L, SCHED> holds on this device:
+// out = {blocks an SM, threads a block, dynamic shared memory a block
+// (bytes), pairs a block}; returns the cudaError_t.
+template <int K, int L, int SCHED>
+cudaError_t occupancy_v9_rows(int* out) {
+  constexpr int P = K * L;
+  constexpr size_t smem = V9Pairs<K, P, L>::Rings::BYTES;
+  static SmemOptIn opt_in;
+  cudaError_t err = opt_in(v9_rows_kernel<K, L, SCHED>, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[0], v9_rows_kernel<K, L, SCHED>, L, smem);
+  out[1] = L;
+  out[2] = (int)smem;
+  out[3] = P;
+  return err;
 }
 
 // shape checks shared by the entry points: pad 8, W = R + 15, B > 0

@@ -29,17 +29,22 @@ PARITY_B = 1024          # their check_parity batch
 # after them); then the stream
 ENTRIES = {
     "dual_chain": ("exp_dual_launch", 8, 6),   # B R W pad nuc_prior K
-    "v13": ("exp_v13_launch", 8, 7),           # ... K two_rows
+    "v13": ("exp_v13_launch", 8, 7),           # ... K schedule
     "v10": ("exp_v10_launch", 11, 5),          # B R W pad K
-    "v11": ("exp_v11_launch", 9, 6),           # B R W pad nuc_prior blk
+    "v11": ("exp_v11_launch", 9, 6),           # B R W pad nuc_prior variant
     "i16": ("exp_i16_launch", 3, 3),           # D B pack
 }
 # experiment -> csrc/ sources besides csrc/exp_<name>.cu
 HEADERS = {"dual_chain": ("exp_rows.cuh", "pairhmm_stage.cuh"),
            "v13": ("exp_rows.cuh", "pairhmm_stage.cuh"),
            "v10": ("exp_rows.cuh", "pairhmm_stage.cuh"),
-           "v11": ("pairhmm_stage.cuh",),
+           "v11": ("exp_rows.cuh", "pairhmm_stage.cuh"),
            "i16": ()}
+# experiment -> (C occupancy query, ints before its (4,) output): blocks an
+# SM, threads, shared memory and pairs a block of the variant the ints name
+OCCUPANCY = {"dual_chain": ("exp_dual_occupancy", 1),   # K
+             "v13": ("exp_v13_occupancy", 2),           # K schedule
+             "v11": ("exp_v11_occupancy", 1)}           # variant
 # launches of each experiment's kernel, counted where its wrapper launches it
 COUNTS = {name: KernelCounts() for name in ENTRIES}
 _libs: dict = {}
@@ -63,6 +68,11 @@ def library(name: str):
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                        + [ctypes.c_void_p])
+        if name in OCCUPANCY:
+            query, n_q = OCCUPANCY[name]
+            q = getattr(lib, query)
+            q.restype = ctypes.c_int
+            q.argtypes = [ctypes.c_int] * n_q + [ctypes.c_void_p]
         _libs[name] = lib
     return lib
 
@@ -83,18 +93,34 @@ def require_cuda(name: str, tensors, dtype=torch.int32) -> None:
 
 def launch(name: str, tensors: list[torch.Tensor], out: torch.Tensor,
            ints: tuple) -> torch.Tensor:
-    """One launch of experiment `name`'s kernel on checked CUDA tensors,
-    writing `out`; counts it in COUNTS[name]."""
+    """One launch of experiment `name`'s kernel on checked CUDA tensors
+    (None: a null pointer), writing `out`; counts it in COUNTS[name]."""
     fn = getattr(library(name), ENTRIES[name][0])
     dev = out.device
-    args = [t.data_ptr() for t in tensors] + [out.data_ptr(), *ints,
-                                              pb._raw_stream(dev.index)]
+    args = ([None if t is None else t.data_ptr() for t in tensors]
+            + [out.data_ptr(), *ints, pb._raw_stream(dev.index)])
     with torch.cuda.device(dev):
         err = fn(*args)
     if err != 0:
         raise RuntimeError(f"exp_{name} kernel launch failed: CUDA error {err}")
     COUNTS[name].add(int(out.shape[-1]))
     return out
+
+
+def occupancy(name: str, *ints: int) -> dict:
+    """What one SM of the current card holds of experiment `name`'s kernel
+    variant `ints` (its occupancy query's arguments): blocks, warps, pairs,
+    and the shared memory of a block and of a pair."""
+    query = getattr(library(name), OCCUPANCY[name][0])
+    out = (ctypes.c_int * 4)()
+    err = query(*ints, out)
+    if err != 0:
+        raise RuntimeError(f"exp_{name} occupancy query failed: CUDA error "
+                           f"{err}")
+    blocks, threads, smem, pairs = out
+    return {"blocks_per_sm": blocks, "warps_per_sm": blocks * threads // 32,
+            "pairs_per_sm": blocks * pairs, "smem_bytes_per_block": smem,
+            "smem_bytes_per_pair": smem / pairs}
 
 
 def check_tracks(tracks, pad: int, multiple: int, what: str):
@@ -153,6 +179,33 @@ def parity_inputs(B: int = PARITY_B, win_hi: int = 5, seed: int = 0,
                                   (0, win_hi, (W, B)), (10, 50, (W, B)),
                                   (1, 8, (W, B)), (0, 4, (W, B)),
                                   (3, 40, (W, B)))]
+
+
+# opn and ext stay below this (csrc/pairhmm.cu's overflow note: no int32
+# sum wraps)
+GAP_LIMIT = 1 << 22
+# (read bases, kind) of the edge inputs the bench never hits: odd and even
+# R from 2, R off the 16-row period and the 8-row chunk, window bases half
+# N, opn and ext just below GAP_LIMIT
+EDGE_CASES = ((2, "parity"), (3, "parity"), (17, "n_bases"),
+              (24, "big_gaps"), (33, "parity"), (41, "big_gaps"))
+
+
+def edge_inputs(B: int, rows: int, kind: str, seed: int = 0):
+    """parity_inputs at `rows` read bases, changed by `kind`: "parity" as
+    they are, "n_bases" with half the window bases N (4), "big_gaps" with
+    opn and ext in [GAP_LIMIT - 64, GAP_LIMIT)."""
+    tracks = parity_inputs(B, 5, seed, rows)
+    rng = np.random.default_rng(seed + 1)
+    if kind == "n_bases":
+        tracks[2][rng.random(tracks[2].shape) < 0.5] = 4
+    elif kind == "big_gaps":
+        for i in (3, 4):
+            tracks[i] = rng.integers(GAP_LIMIT - 64, GAP_LIMIT,
+                                     tracks[i].shape).astype(np.int32)
+    elif kind != "parity":
+        raise ValueError(f"edge input kind {kind!r}")
+    return tracks
 
 
 def bench_inputs(B: int = BENCH_B, win_hi: int = 5, seed: int = 0,

@@ -442,13 +442,15 @@ def _experiment_cases():
     cases = [("dual_chain", f"K{K}",
               lambda t, K=K: dual_chain.scores_dual_cuda(*t, K=K))
              for K in dual_chain.KERNEL_K]
-    cases += [("v11", f"blk{b}",
-               lambda t, b=b: v11_kernel.scores_v11_cuda(*t, blk=b))
-              for b in v11_kernel.BLK_VARIANTS]
-    cases += [("v13", f"K{K}x{2 if two else 1}",
-               lambda t, K=K, two=two: v13_unroll2.launch_v13(
-                   t, pad=8, nuc_prior=2, K=K, two_rows=two))
-              for K in v13_unroll2.K_VARIANTS for two in (True, False)]
+    cases += [("v11", v,
+               lambda t, v=v: v11_kernel.shfl_call(t, variant=v)
+               if v.startswith("shfl") else
+               v11_kernel.launch_v11(t, pad=8, nuc_prior=2, variant=v))
+              for v in v11_kernel.VARIANTS]
+    cases += [("v13", v,
+               lambda t, v=v: v13_unroll2.launch_v13(t, pad=8, nuc_prior=2,
+                                                     variant=v))
+              for v in v13_unroll2.VARIANTS]
 
     def v9(t):
         return xc.plain_v9(t, 8, 2)
@@ -463,9 +465,10 @@ def _experiment_cases():
 
 
 EXPERIMENT_VARIANTS = ["dual_chain-K1", "dual_chain-K2", "dual_chain-K4",
-                       "v11-blk1", "v11-blk2", "v13-K4x2", "v13-K4x1",
-                       "v13-K6x2", "v13-K6x1", "v10-K1", "v10-K2", "v10-K4",
-                       "v10-K8"]
+                       "v11-regs_ring_p4", "v11-regs_ring_p16",
+                       "v11-shfl_blk1", "v11-shfl_blk2", "v13-shared_K1",
+                       "v13-shared_K2", "v13-K4x2", "v13-K4x1", "v13-K6x2",
+                       "v13-K6x1", "v10-K1", "v10-K2", "v10-K4", "v10-K8"]
 
 
 @pytest.mark.parametrize("rows", [150, 33, 7])
@@ -483,6 +486,47 @@ def test_kernel_experiments_match_their_plain_versions(cuda, variant, rows):
     torch.cuda.synchronize()
     assert torch.equal(got, plain(t))
     assert torch.equal(got, pb.pairhmm_scores_cuda(*(a.t() for a in t), pad=8))
+
+
+EDGE_VARIANTS = [v for v in EXPERIMENT_VARIANTS
+                 if v.startswith(("v11-", "v13-"))]
+
+
+@pytest.mark.parametrize("edge", range(6))
+@pytest.mark.parametrize("variant", EDGE_VARIANTS)
+def test_v11_v13_variants_match_at_edge_shapes(cuda, variant, edge):
+    """Every v11 and v13 variant, the Hopper designs and the first ports,
+    equals the plain version and kernel #1 on the edge inputs (odd and even
+    R from 2, R off the 16-row period and the 8-row chunk, half the window
+    bases N, opn and ext just below 2^22)."""
+    from octopus_tpu_torch.kernel_experiments import _common as xc
+    rows, kind = xc.EDGE_CASES[edge]
+    fn, plain = {f"{e}-{v}": (fn, plain)
+                 for e, v, fn, plain in _experiment_cases()}[variant]
+    t = xc.as_tracks(xc.edge_inputs(1536, rows, kind, seed=edge), cuda)
+    got = fn(t)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain(t))
+    assert torch.equal(got, pb.pairhmm_scores_cuda(*(a.t() for a in t), pad=8))
+
+
+@pytest.mark.parametrize("name,ints", [
+    ("v11", (100, 0)), ("v11", (100, 1)), ("v13", (96, 6, 1)),
+    ("v13", (96, 2, 3)), ("v13", (256, 3, 3))],
+    ids=["v11-regs_ring_p4", "v11-regs_ring_p16", "v13-K6x2", "v13-shared_K2",
+         "v13-no_such_K"])
+def test_refused_experiment_launches_raise(cuda, name, ints):
+    """A launch the C entry point refuses (B not a multiple of the block's
+    pairs, or no such instantiation) raises and is not counted."""
+    from octopus_tpu_torch.kernel_experiments import _common as xc
+    B = ints[0]
+    t = xc.as_tracks(xc.parity_inputs(B, 5, rows=9), cuda)
+    out = torch.empty(B, dtype=torch.int32, device=cuda)
+    before = xc.COUNTS[name].launches
+    ptrs = t + [None] if name == "v11" else t
+    with pytest.raises(RuntimeError, match="launch failed"):
+        xc.launch(name, ptrs, out, (B, 9, 24, 8, 2) + ints[1:])
+    assert xc.COUNTS[name].launches == before
 
 
 @pytest.mark.parametrize("B", [128, 4098])

@@ -52,8 +52,12 @@ def interpret(fn, *args, **kw):
 
 
 @functools.cache
-def inputs(B, win_hi):
-    return tuple(xc.parity_inputs(B, win_hi))
+def inputs(B, win_hi, rows=xc.R, kind=None):
+    """The check_parity tracks, or (kind set) the edge inputs of
+    `rows` read bases."""
+    if kind is None:
+        return tuple(xc.parity_inputs(B, win_hi))
+    return tuple(xc.edge_inputs(B, rows, kind))
 
 
 # (experiment file, its function, the port's entry point, keyword, B,
@@ -68,14 +72,34 @@ SCORER_CASES = (
        for b in v11_kernel.BLK_VARIANTS]
     + [("v13_unroll2", "scores_v13", v13_unroll2.scores_v13, {"K": K},
         1024 if K == 4 else 1536, 5) for K in v13_unroll2.K_VARIANTS])
+SCORER_CASES = [c + (xc.R, None) for c in SCORER_CASES]
+# v11 and v13 at the edge shapes the bench never hits (xc.EDGE_CASES: odd
+# and even R from 2, R off the 16-row period and the 8-row chunk, half the
+# window bases N, opn and ext just below 2^22): v11 at every shape and v13
+# (4-12x slower in interpret mode) at the first four, which cover every
+# kind, at the experiments' default keyword; one at the other
+SCORER_CASES += (
+    [("v11_kernel", "scores_v11", v11_kernel.scores_v11, {"blk": 1}, 128, 5,
+      rows, kind) for rows, kind in xc.EDGE_CASES]
+    + [("v13_unroll2", "scores_v13", v13_unroll2.scores_v13, {"K": 4}, 512, 5,
+        rows, kind) for rows, kind in xc.EDGE_CASES[:4]]
+    + [("v11_kernel", "scores_v11", v11_kernel.scores_v11, {"blk": 2}, 256, 5,
+        17, "n_bases"),
+       ("v13_unroll2", "scores_v13", v13_unroll2.scores_v13, {"K": 6}, 768, 5,
+        3, "parity")])
 
 
-@pytest.mark.parametrize(
-    "name,fn_name,port,kw,B,win_hi", SCORER_CASES,
-    ids=[f"{c[0]}-{next(iter(c[3].items()))[0]}{next(iter(c[3].values()))}"
-         for c in SCORER_CASES])
-def test_port_equals_the_experiment(name, fn_name, port, kw, B, win_hi):
-    tracks = inputs(B, win_hi)
+def case_id(case):
+    name, _, _, kw, _, _, rows, kind = case
+    (key, value), = kw.items()
+    return f"{name}-{key}{value}" + (f"-R{rows}-{kind}" if kind else "")
+
+
+@pytest.mark.parametrize("name,fn_name,port,kw,B,win_hi,rows,kind",
+                         SCORER_CASES, ids=[case_id(c) for c in SCORER_CASES])
+def test_port_equals_the_experiment(name, fn_name, port, kw, B, win_hi, rows,
+                                    kind):
+    tracks = inputs(B, win_hi, rows, kind)
     want = interpret(getattr(experiment(name), fn_name), *tracks,
                      pad=xc.PAD, **kw)
     got = port(*tracks, pad=xc.PAD, device="cpu", **kw).numpy()
@@ -123,9 +147,12 @@ CUDA_WRAPPERS = {
                                                   pad=8, K=4),
     "v11": lambda t: v11_kernel.scores_v11_cuda(*t),
     "v11_launch": lambda t: v11_kernel.launch_v11(
-        t, v11_kernel.v11_pre(t[4]), pad=8, nuc_prior=2, blk=1),
-    "v13": lambda t: v13_unroll2.launch_v13(t, pad=8, nuc_prior=2, K=4,
-                                            two_rows=False),
+        t, v11_kernel.v11_pre(t[4]), pad=8, nuc_prior=2, variant="shfl_blk1"),
+    "v11_regs_p16": lambda t: v11_kernel.launch_v11(t, pad=8, nuc_prior=2,
+                                                    variant="regs_ring_p16"),
+    "v13": lambda t: v13_unroll2.launch_v13(t, pad=8, nuc_prior=2,
+                                            variant="K4x1"),
+    "v13_shared": lambda t: v13_unroll2.scores_v13_cuda(*t),
     "i16": lambda t: i16_probe.run_cuda(t[0][:16].short(), t[1][:16].short()),
 }
 
@@ -159,3 +186,19 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry,
 def test_batch_must_divide_as_in_the_experiment(port, kw):
     with pytest.raises(ValueError, match="multiple"):
         port(*_cpu_tracks(640), device="cpu", **kw)
+
+
+@pytest.mark.parametrize("launch", [
+    lambda t: v11_kernel.launch_v11(t, pad=8, nuc_prior=2, variant="blk1"),
+    lambda t: v13_unroll2.launch_v13(t, pad=8, nuc_prior=2, variant="K8x2")],
+    ids=["v11", "v13"])
+def test_launch_refuses_unknown_variants(launch):
+    with pytest.raises(ValueError, match="variants"):
+        launch(_cpu_tracks(256))
+
+
+def test_v11_shfl_variants_take_pre():
+    t = _cpu_tracks(256)
+    with pytest.raises(ValueError, match="pre"):
+        v11_kernel.launch_v11(t, pad=8, nuc_prior=2, variant="shfl_blk2")
+    assert v11_kernel.v11_pre(t[4]).shape == t[4].shape

@@ -73,11 +73,11 @@ Twenty-two phases, each printing JSON lines:
    (OCTOPUS_TPU_HOST_HMM_MAX and OCTOPUS_TPU_VB_DEVICE_MIN) keeps every
    pair-HMM launch and every VB evaluation and holds them against the plain
    twin and the same evaluation on the CPU (bit for bit; the rows
-   of the largest on a sample, check_vb). Then timed
-   runs in turns: default gates, gates 0. Every run must
-   write the same records; each gates-0 run must launch kernel #1 from
-   populate and read assignment and run VB on the card; germline recall
-   and precision must reach 0.95 and somatic 0.9;
+   of the largest on a sample, check_vb). Then one timed run at the
+   default gates (a second timed gates-0 run was cut for the time limit).
+   Both runs must write the same records; the gates-0 run must launch
+   kernel #1 from populate and read assignment and run VB on the card;
+   germline recall and precision must reach 0.95 and somatic 0.9;
 8. polyclone_cli and cell_cli: the BAMs of the reference package's
    tests/test_e2e_polyclone_cell.py (12 kb, 3 clones, 100x; 9 kb, 6 cells,
    15x) through the CLI once on the card with both gates at 0, every VB
@@ -95,8 +95,8 @@ Twenty-two phases, each printing JSON lines:
 
 10. pool_cli: the cli phase's BAM through the CLI serially, on the process
    pool (--threads W, W = min(8, cores); CPU-only workers, the parent keeps
-   the card) and on the thread pool (--thread-workers), default gates, in
-   turns (serial, processes, threads, and back); every run must write the
+   the card) and on the thread pool (--thread-workers), default gates, one
+   run each (serial, processes, threads); every run must write the
    serial card run's records, and no pool may fall back to threads;
 11. pool_cli_deferred: the process pool with every window of a variant
    handed back to the parent (OCTOPUS_TPU_DEFER_HEAVY_AT=1) and the
@@ -139,7 +139,7 @@ module's own JSON line before its row:
    the warm-up; identical records, recall and precision 0.95, the pool's
    start-up beside the walls;
 19. bench_e2e_long: the long mode (5-15 kb reads, the PacBioCCS preset) at
-   50 kb (the README's 100 kb, cut for the time limit), 30x, at the
+   30 kb (the README's 100 kb, cut for the time limit), 30x, at the
    default gate and gate 0: identical records, #1 launched at gate 0, its
    longest R printed; then #1 in every variant on 256 pairs of 5 kb and
    of 15 kb reads against the plain twin (long_read_kernel);
@@ -230,6 +230,8 @@ TEMPLATE_PARAMS = {"pairhmm": ("D", "T"),
                    "exp_dual_chain": ("K", "L", "S"),
                    "exp_v13": ("K", "L", "S"),
                    "exp_v10": ("K", "L"),
+                   "exp_v10_regs": ("L", "P"),
+                   "exp_v10_rings": ("L", "C"),
                    "exp_v11": ("BLK",),
                    "exp_v11_regs": ("L", "P"),
                    "exp_i16": ("PACK",)}
@@ -244,6 +246,8 @@ def template_key(function: str, kernel: str) -> str:
         kernel += "_wave"
     if "regs_kernel" in function:
         kernel += "_regs"
+    if "rings_kernel" in function:
+        kernel += "_rings"
     return "_".join(f"{k}{v}" for k, v in zip(TEMPLATE_PARAMS[kernel], values))
 
 
@@ -670,8 +674,9 @@ EXPERIMENTS = {
     "exp_i16": "experiments/i16_probe.py:35",
 }
 # the variant of each experiment in the kernels line: its experiment's
-# default keyword, or (v11, v13) the Hopper design its entry point launches
-EXP_DEFAULT = {"exp_dual_chain": "K2", "exp_v10": "K4",
+# default keyword, or (v10, v11, v13) the Hopper design its entry point
+# launches
+EXP_DEFAULT = {"exp_dual_chain": "K2", "exp_v10": "regs_p16",
                "exp_v11": "regs_ring_p4", "exp_v13": "shared_K1",
                "exp_i16": "pack2"}
 # rows a row-loop iteration as the source writes it, for each Schedule of
@@ -683,8 +688,9 @@ def exp_build(lib: str, variant: str):
     """A scorer variant's instantiation key in the ptxas report and the
     SASS, the rows and pairs an iteration of its row loop as the source
     writes it, and its occupancy query (experiment and arguments), from the
-    wrappers' own variant tables; None for v10 and i16."""
-    from octopus_tpu_torch.kernel_experiments import v11_kernel, v13_unroll2
+    wrappers' own variant tables; None for i16."""
+    from octopus_tpu_torch.kernel_experiments import (v10_kernel, v11_kernel,
+                                                      v13_unroll2)
     if lib == "exp_dual_chain":
         K = int(variant.lstrip("K"))
         return f"K{K}_L32_S0", SCHEDULE_ROWS[0], K, ("dual_chain", K)
@@ -698,11 +704,21 @@ def exp_build(lib: str, variant: str):
         if kind == "shfl_blk":
             return f"BLK{n}", 1, 1, ("v11", arg)
         return f"L32_P{n}", int(n), 1, ("v11", arg)
+    if lib == "exp_v10":
+        arg = v10_kernel.VARIANTS[variant]
+        if variant.startswith("tracks10"):
+            K = int(variant.rsplit("K", 1)[1])
+            return (f"K{K}_L{16 if K == 8 else 32}", SCHEDULE_ROWS[0], K,
+                    ("v10", arg))
+        if variant == "rings":
+            return "L32_C4", SCHEDULE_ROWS[0], 1, ("v10", arg)
+        P = int(variant.rsplit("p", 1)[1])
+        return f"L32_P{P}", P, 1, ("v10", arg)
     return None
 
 
 # pairs of the edge checks: a multiple of every variant's 128 K
-EDGE_B = 1536
+EDGE_B = 3072
 # the i16 probe's least int work an element, a fused DPX form counted as
 # one operation as in OPS_PER_CELL: 7 a round (m + a and its min, the min
 # with the shifted m, i + 2, the select, three prefix mins), and once the
@@ -712,11 +728,29 @@ I16_OPS_ONCE = 2
 I16_SHAPE = (16, 1 << 20)
 
 
-def v10_bytes_bound(B, R, pad):
-    """Least time for v10's kernel to read its ten tracks (2 of R rows, 8
-    of W) once and write the scores, over the memory rate."""
-    W = R + 2 * pad - 1
-    return ((2 * R + 8 * W) * 4 * B + 4 * B) / DRAM_BYTES_PER_S * 1e3
+# v10's cell: nuc_prior folded into the insertion sum, the N cap one min
+V10_OPS_PER_CELL = OPS_PER_CELL - 2
+
+
+def v10_bounds(B, R, pad, tracks10=False) -> dict:
+    """v10's least time, ms: V10_OPS_PER_CELL int32 ops a cell (as
+    pairhmm_bound counts OPS_PER_CELL) against its tracks read once and the
+    scores written once, over the memory rate: the seven raw tracks (2 of R
+    rows, 5 of W), or the first port's ten (2 of R, 8 of W). Beside it the
+    function's bound at OPS_PER_CELL ops a cell and the ten tracks'
+    bytes."""
+    D, W = 2 * pad, R + 2 * pad - 1
+    ops_ms = (V10_OPS_PER_CELL * R + 6) * D * B / INT32_OPS_PER_S * 1e3
+
+    def bytes_ms(window_tracks):
+        return (((2 * R + window_tracks * W) * 4 * B + 4 * B)
+                / DRAM_BYTES_PER_S * 1e3)
+
+    mem_ms = bytes_ms(8 if tracks10 else 5)
+    return {"bound_ms": max(ops_ms, mem_ms),
+            "bound_by": "operations" if ops_ms >= mem_ms else "bytes",
+            "function_bound_14op_ms": pairhmm_bound(B, R, pad)[0],
+            "ten_track_bytes_ms": bytes_ms(8)}
 
 
 def sass_functions(path: str) -> dict:
@@ -815,13 +849,14 @@ def i16_sass(functions: dict) -> dict:
 def phase_kernel_experiments(seed=SEED):
     """The five kernel experiments at their bench shape (65,536 pairs, R =
     150, band 8; i16 at (16, 1,048,576)): every variant of each
-    experiment's __main__ (v11 and v13: their Hopper designs and first ports)
-    against its plain version and, for the four scorers, against kernel #1
-    on the same tracks, error 0, also (v11, v13) on EDGE_CASES; kernel and
-    wrapper CUDA-event medians of 7, #1's beside them (and dual_chain K1's
-    and K2's beside each v11 and v13 variant), plain of 5; each
-    variant's registers, spills, SASS size, row loop's loads and
-    occupancy; the i16 loop's SASS."""
+    experiment's __main__ (v10, v11 and v13: their Hopper designs and first
+    ports) against its plain version and, for the four scorers, against
+    kernel #1 on the same tracks, error 0, also (v10, v11, v13) on
+    EDGE_CASES; kernel and wrapper CUDA-event medians of 7, #1's beside
+    them (and dual_chain K1's and K2's beside each v10, v11 and v13
+    variant), plain of 5; v10's own bounds; each variant's registers,
+    spills, SASS size, row loop's loads and occupancy; the i16 loop's
+    SASS."""
     import torch
     from octopus_tpu_torch import _build
     from octopus_tpu_torch.core.likelihood import pairhmm_batch as pb
@@ -875,13 +910,35 @@ def phase_kernel_experiments(seed=SEED):
             call = ((lambda t: v13_unroll2.scores_v13(*t))
                     if v == v13_unroll2.DEFAULT_VARIANT else kernel)
             out["exp_v13"][v] = (kernel, call)
+        # v10: the Hopper designs on the raw tracks (the entry point runs
+        # the default); the first port's tracks10 with the wrapper's
+        # prologue, the ten tracks made once for the kernel time
+        out["exp_v10"] = {}
+        for v in v10_kernel.VARIANTS:
+            if v.startswith("tracks10"):
+                def kernel(t, v=v):
+                    return v10_kernel.launch_v10(tracks10_of(t), pad=pad,
+                                                 variant=v)
+
+                def call(t, v=v):
+                    return v10_kernel.tracks10_call(t, variant=v)
+            else:
+                def kernel(t, v=v):
+                    return v10_kernel.launch_v10(t, pad=pad, nuc_prior=nuc,
+                                                 variant=v)
+                call = ((lambda t: v10_kernel.scores_v10(*t))
+                        if v == v10_kernel.DEFAULT_VARIANT else kernel)
+            out["exp_v10"][v] = (kernel, call)
         return out
 
-    def v10_variants(t10):
-        return {f"K{K}": (lambda t, K=K: v10_kernel.launch_v10(t10, pad=pad,
-                                                              K=K),
-                          lambda t, K=K: v10_kernel.scores_v10(*t, K=K))
-                for K in v10_kernel.K_VARIANTS}
+    last_tracks10 = []            # [tracks, their prologue's ten]
+
+    def tracks10_of(t):
+        if not last_tracks10 or any(a is not b for a, b in
+                                    zip(last_tracks10[0], t)):
+            last_tracks10[:] = [list(t), v10_kernel.v10_tracks(*t,
+                                                               nuc_prior=nuc)]
+        return last_tracks10[1]
 
     def pairs_of(lib, variant, Bt):
         """The most pairs up to Bt that the variant's 128 K divides (K = 6
@@ -890,15 +947,16 @@ def phase_kernel_experiments(seed=SEED):
         return Bt - Bt % (xc.LANES * K)
 
     variants = scorers()
-    # the edge inputs (EDGE_CASES) through every v11 and v13 variant: error
-    # 0 against the plain version and #1 on the same tracks
+    # the edge inputs (EDGE_CASES) through every v10, v11 and v13 variant:
+    # error 0 against the plain version and #1 on the same tracks
     edge = {}
     for rows_e, kind in xc.EDGE_CASES:
         t = xc.as_tracks(xc.edge_inputs(EDGE_B, rows_e, kind, seed=seed),
                          "cuda")
-        want = xc.plain_v9(t, pad, nuc)
         one = pb.pairhmm_scores_cuda(*(a.t() for a in t), pad=pad)
-        for lib in ("exp_v11", "exp_v13"):
+        for lib in ("exp_v10", "exp_v11", "exp_v13"):
+            want = (v10_kernel.v10_rows_plain(tracks10_of(t), pad=pad)
+                    if lib == "exp_v10" else xc.plain_v9(t, pad, nuc))
             for variant, (kernel, _) in variants[lib].items():
                 got = kernel(t)
                 torch.cuda.synchronize()
@@ -916,16 +974,15 @@ def phase_kernel_experiments(seed=SEED):
         one = pb.pairhmm_scores_cuda(*bm, pad=pad)
         one_ms = cuda_ms(lambda: pb.launch_kernel(bm, pad=pad))
         one_call_ms = cuda_ms(lambda: pb.pairhmm_scores_cuda(*bm, pad=pad))
-        t10 = v10_kernel.v10_tracks(*t, nuc_prior=nuc)
         plains = {}
         for lib in libs:
-            vs = v10_variants(t10) if lib == "exp_v10" else variants[lib]
-            for variant, (kernel, wrapper) in vs.items():
+            for variant, (kernel, wrapper) in variants[lib].items():
                 Bv = pairs_of(lib, variant, B)
                 tk = t if Bv == B else [a[:, :Bv].contiguous() for a in t]
                 key = (lib == "exp_v10", Bv)
                 if key not in plains:
-                    plain = ((lambda: v10_kernel.v10_rows_plain(t10, pad=pad))
+                    plain = ((lambda tk=tk: v10_kernel.v10_rows_plain(
+                        tracks10_of(tk), pad=pad))
                              if lib == "exp_v10" else
                              (lambda tk=tk: xc.plain_v9(tk, pad, nuc)))
                     plains[key] = (plain(), cuda_ms(plain, reps=5))
@@ -944,8 +1001,8 @@ def phase_kernel_experiments(seed=SEED):
                        "pairhmm_1_call_ms": one_call_ms,
                        "plain_ms": plain_ms, "bound_ms": bound_ms,
                        "bound_by": bound_by}
-                if lib in ("exp_v11", "exp_v13"):
-                    # the base both redesigns started from, timed right
+                if lib in ("exp_v10", "exp_v11", "exp_v13"):
+                    # the base the redesigns are held to, timed right
                     # after the variant on the same tracks: walls drift
                     # ~10-20% between the phase's passes
                     for K in (1, 2):
@@ -954,9 +1011,11 @@ def phase_kernel_experiments(seed=SEED):
                 row["m_pairs_per_s"] = Bv / row["wrapper_ms"] / 1e3
                 if Bv != B:
                     row["bound_ms"], row["bound_by"] = pairhmm_bound(Bv, R, pad)
-                row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
                 if lib == "exp_v10":
-                    row["bytes_bound_ms"] = v10_bytes_bound(B, R, pad)
+                    # v10's own: 12 ops a cell, the tracks it reads
+                    row.update(v10_bounds(Bv, R, pad,
+                                          variant.startswith("tracks10")))
+                row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
                 if (lib, variant) in edge:
                     e_err, e_one, cases = edge[(lib, variant)]
                     row.update(edge_max_abs_err=e_err,
@@ -966,7 +1025,8 @@ def phase_kernel_experiments(seed=SEED):
                 rows.append(row)
                 if err or err_one:
                     raise AssertionError(f"kernel_experiments: {row}")
-        del t, bm, t10, plains
+        del t, bm, plains
+        last_tracks10.clear()
         torch.cuda.empty_cache()
 
     # the i16 probe: the experiment's own input, a wrapping one, the bench
@@ -1737,9 +1797,9 @@ def phase_cancer_cli(device="cuda", kb=CANCER_KB):
     """The cancer caller through the CLI on the cancer mode of
     octopus_tpu_torch.bench_e2e_multi (its input, and its accuracy line
     for the timed default-gates run): an untimed checked run with both
-    gates at 0, then timed runs in turns. Returns (the launches of kernel
-    #1 in the timed gates-0 run, the kept launches' and evaluations'
-    largest errors). device="cpu" rehearses the phase (no kernel, no card
+    gates at 0, then a timed run at the default gates. Returns (the
+    launches of kernel #1 in the gates-0 run, the kept launches' and
+    evaluations' largest errors). device="cpu" rehearses the phase (no kernel, no card
     VB)."""
     import os
     import shutil
@@ -1784,25 +1844,18 @@ def phase_cancer_cli(device="cuda", kb=CANCER_KB):
 
         kept, kept_evals = [], []
         with kept_launches(pb, kept, "pairhmm", la), kept_vb(kept_evals):
-            checked, _ = run("gates0", timed=False)
+            checked, row = run("gates0", timed=False)
+        launches = row["launches"]["pairhmm"]
         errs = {}
         if device == "cuda":
             errs["pairhmm"] = check_launches(pb, kept, "cancer_cli_launches")
             errs["vb"] = check_vb(kept_evals, "cancer_cli_vb")
-        runs = [checked]
-        launches = None
-        # in turns after the checked gates-0 run
-        for label in ("default_gates", "gates0"):
-            lines, row = run(label, timed=True)
-            runs.append(lines)
-            if label == "gates0":
-                launches = row["launches"]["pairhmm"]
-            else:
-                # the bench module's accuracy line for this run
-                print(json.dumps(bench_e2e_multi.cancer_result(
-                    caller_vcf(tmp, label, True), (germline, somatic), kb,
-                    CANCER_DEPTH, row["wall_s"], CANCER_VAF)), flush=True)
-        if any(lines != checked for lines in runs):
+        lines, row = run("default_gates", timed=True)
+        # the bench module's accuracy line for this run
+        print(json.dumps(bench_e2e_multi.cancer_result(
+            caller_vcf(tmp, "default_gates", True), (germline, somatic), kb,
+            CANCER_DEPTH, row["wall_s"], CANCER_VAF)), flush=True)
+        if lines != checked:
             raise AssertionError("cancer_cli runs wrote different records")
         return launches, errs
     finally:
@@ -1977,8 +2030,8 @@ def _pool_row(row):
 
 def phase_pool_cli(inputs, tmp, device="cuda"):
     """The cli phase's BAM through the CLI serially, on the process pool
-    and on the thread pool, W = min(8, cores) workers, default gates, in
-    turns. Every run must write the serial card run's records;
+    and on the thread pool, W = min(8, cores) workers, default gates, one
+    run each. Every run must write the serial card run's records;
     no pool may fall back. Returns the parent's kernel #1 launches."""
     import os
     from octopus_tpu_torch import run
@@ -1986,10 +2039,9 @@ def phase_pool_cli(inputs, tmp, device="cuda"):
     with open(inputs["serial"]) as fh:
         want = [line.rstrip("\n") for line in fh if not line.startswith("#")]
     argv = ["-R", inputs["fa"], "-I", inputs["bam"]]
-    walls = collections.defaultdict(list)
+    walls = {}
     launches = 0
-    for label in ("serial", "processes", "threads", "threads", "processes",
-                  "serial"):
+    for label in ("serial", "processes", "threads"):
         run.POOL.reset()
         lines, row = run_caller_cli(
             tmp, "pool_cli", label,
@@ -1998,7 +2050,7 @@ def phase_pool_cli(inputs, tmp, device="cuda"):
         row.update({"workers": W, "cpu_count": os.cpu_count(),
                     "region_kb": inputs["kb"], "records": len(lines)})
         emit(_pool_row(row))
-        walls[label].append(row["wall_s"])
+        walls[label] = row["wall_s"]
         if label == "processes":
             launches += row["launches"]["pairhmm"]
         if lines != want:
@@ -2008,8 +2060,7 @@ def phase_pool_cli(inputs, tmp, device="cuda"):
                                      or not run.POOL.worker_windows):
             raise AssertionError(f"pool_cli {label}: {run.POOL}")
     emit({"phase": "pool_cli_walls", "workers": W, "cpu_count": os.cpu_count(),
-          "wall_s": dict(walls),
-          "median_s": {k: statistics.median(v) for k, v in walls.items()}})
+          "wall_s": walls})
     return launches
 
 
@@ -2349,10 +2400,12 @@ def phase_bench(device="cuda", check_B=16384):
 
 
 # the README's `bench_e2e.py 200 30`, and its `bench_e2e.py 100 30 long`
-# cut to 50 kb for the run's time limit: at 100 kb a long-mode run took
-# 109-118 s on the card, host-bound (the haplotype beam ~50 s)
+# cut to 30 kb for the run's time limit: at 100 kb a long-mode run took
+# 109-118 s on the card, at 50 kb 59-69 s, at 30 kb 45-55 s, host-bound
+# (the haplotype beam ~50 s at 100 kb); at 20 kb a run is 4 s and no
+# longer host-bound
 BENCH_E2E_KB = 200
-BENCH_E2E_LONG_KB = 50
+BENCH_E2E_LONG_KB = 30
 BENCH_E2E_GATES = {"default_gate": {}, "gate0": {"OCTOPUS_TPU_HOST_HMM_MAX": "0"}}
 
 
@@ -2505,7 +2558,7 @@ def long_read_kernel(pb, pad=8):
 
 def phase_bench_e2e_long(device="cuda", kb=BENCH_E2E_LONG_KB):
     """octopus_tpu_torch.bench_e2e's `long` mode (5-15 kb PacBio-HiFi-style
-    reads through resources/configs/PacBioCCS.config) at 50 kb (the
+    reads through resources/configs/PacBioCCS.config) at 30 kb (the
     README's 100 kb cut, BENCH_E2E_LONG_KB), 30x, at the default gate and
     at gate 0: identical records, recall and precision 0.95, and kernel #1
     launched at gate 0 (its longest R printed). Then kernel #1 on pairs of

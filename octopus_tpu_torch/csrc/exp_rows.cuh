@@ -1,5 +1,5 @@
 // Shared pieces of the kernel experiments' CUDA ports (Hopper, sm_90a):
-// csrc/exp_dual_chain.cu, exp_v13.cu and exp_v10.cu.
+// csrc/exp_dual_chain.cu, exp_v13.cu, exp_v10.cu and exp_v11.cu.
 //
 // The experiments in experiments/*.py take kernel-layout tracks: tgt and
 // qual (R, B), the window tracks (W, B), W = R + D - 1, int32, B the fast
@@ -17,6 +17,8 @@
 // band of D = 16 diagonals and nothing else.
 
 #pragma once
+
+#include <utility>
 
 #include "pairhmm_stage.cuh"
 
@@ -358,6 +360,233 @@ cudaError_t occupancy_v9_rows(int* out) {
   out[2] = (int)smem;
   out[3] = P;
   return err;
+}
+
+// The new rows of a block of L pairs (csrc/exp_v11.cu's and exp_v10.cu's
+// register designs, which hold the first 16 window rows themselves),
+// staged by 16-byte cp.async into rings of RN rows a track (two chunks of C
+// rows): chunk c brings read rows [cC, cC+C) of tgt and qual and window
+// rows [cC+D, cC+C+D) of the five window tracks, what rows cC+1 .. cC+C
+// read beyond the first 16 window rows. A ring row holds the block's L
+// pairs side by side.
+template <int L, int C_ = 8>
+struct NewRows {
+  static constexpr int C = C_;
+  static constexpr int RN = 2 * C;
+  static constexpr int TGT = N_WINDOW, QUAL = N_WINDOW + 1;
+  static constexpr int WORDS = (N_WINDOW + 2) * RN * L;
+  static constexpr size_t BYTES = (size_t)WORDS * sizeof(int);
+  static_assert(L % 4 == 0, "16-byte copies");
+  static_assert((RN & (RN - 1)) == 0, "rings of a power of two rows");
+
+  // word of track `track`, ring row `row`, column `col`
+  __device__ __forceinline__ static int at(int track, int row, int col) {
+    return (track * RN + (row & (RN - 1))) * L + col;
+  }
+
+  // rows [r0, min(r0 + C, len)) of one (len, B) track, the block's columns
+  __device__ __forceinline__ static void copy(int* s, int track,
+                                              const int* __restrict__ g,
+                                              int len, int B, int r0,
+                                              int first) {
+    constexpr int V = L / 4;
+    const int n = (min(r0 + C, len) - r0) * V;
+    for (int i = threadIdx.x; i < n; i += L) {
+      const int r = r0 + i / V;
+      const int v = 4 * (i % V);
+      cp_async16(s + at(track, r, v), g + (size_t)r * B + first + v);
+    }
+  }
+
+  // start chunk c's copies (none past the last row), one commit group
+  __device__ __forceinline__ static void stage(int* s, int c,
+                                               const int* const* win_g,
+                                               const int* tgt,
+                                               const int* qual, int R, int W,
+                                               int B, int first) {
+    if (c * C < R) {
+#pragma unroll
+      for (int k = 0; k < N_WINDOW; ++k)
+        copy(s, k, win_g[k], W, B, c * C + D, first);
+      copy(s, TGT, tgt, R, B, c * C, first);
+      copy(s, QUAL, qual, R, B, c * C, first);
+    }
+    cp_async_commit();
+  }
+};
+
+// Kernel-layout tracks of one launch and this thread's pair.
+struct Tracks {
+  const int* __restrict__ tgt;
+  const int* __restrict__ qual;
+  const int* win[N_WINDOW];  // WIN, MASK, PRIOR, OPN, EXT
+  int B, R, W, b, nuc_prior;
+
+  __device__ __forceinline__ int at(const int* t, int row) const {
+    return __ldg(t + (size_t)row * B + b);
+  }
+};
+
+// The chunk turn before row y = cC + 1 (chunks of NewRows<L>): every lane
+// is done with chunk c-1, whose ring rows take chunk c+1; chunk c has
+// landed. Out of line, so that an unrolled body holds one call, not one
+// copy, for each row that may start a chunk.
+template <int L>
+__device__ __noinline__ void turn_chunk(int c, int* s, const int* tgt,
+                                        const int* qual, const int* win,
+                                        const int* mask, const int* prior,
+                                        const int* opn, const int* ext, int R,
+                                        int W, int B, int first) {
+  const int* win_g[N_WINDOW] = {win, mask, prior, opn, ext};
+  __syncthreads();
+  NewRows<L>::stage(s, c + 1, win_g, tgt, qual, R, W, B, first);
+  cp_async_wait<1>();
+  __syncthreads();
+}
+
+template <int L>
+__device__ __forceinline__ void turn(int c, const Tracks& g, int* s,
+                                     int first) {
+  turn_chunk<L>(c, s, g.tgt, g.qual, g.win[WIN], g.win[MASK], g.win[PRIOR],
+                g.win[OPN], g.win[EXT], g.R, g.W, g.B, first);
+}
+
+// A pair's register window, the Hopper designs of csrc/exp_v11.cu (#7)
+// and exp_v10.cu (#6): one thread a pair, NV values of each of the band's
+// 16 window positions in the thread's registers (value i of slot k in
+// v[i][k]) and M, I and D of its 16 diagonals. The row loop is unrolled
+// over P rows (P divides 16); at the start of each unrolled body slot k
+// holds position y0-1+k for the body's first row y0, so row y0+i's
+// diagonal k reads slot (i+k) % 16, all constants. At P = 16 a body ends
+// where the next begins; below 16 the slots rotate by P after each body,
+// which trades moves for code size. Row y's diagonal 0 frees the slot of
+// position y-1, which takes position y+15 from NewRows' rings. Cell says
+// what a slot holds and how a cell reads it:
+//   NV, Carry: values a slot; what entering a position carries to the
+//     next (entered in order, from position 0);
+//   enter(w, m, p, o, e, nuc_prior, carry, x): the slot values x of a
+//     position from its five raw window values;
+//   row0(v, M, I, Dl): row 0 from the first 16 positions' slots;
+//   cell<LAST>(t, q, v, sl, m_up, i_up, nuc_prior, M, I, Dl, mi_prev,
+//     chain): one cell reading slot sl; m_up and i_up the M and I of the
+//     diagonal above (LAST: the band's last diagonal, none above, INF);
+//     mi_prev and chain carry the deletion chain down the row's diagonals.
+template <int L, int P, class Cell>
+struct RegWindows {
+  static_assert(D % P == 0, "bodies of a divisor of the band");
+  using Rows = NewRows<L>;
+  static constexpr int NV = Cell::NV;
+  int v[NV][D];
+  int M[D], I[D], Dl[D];
+  typename Cell::Carry carry;
+
+  // a position's raw values into slot j
+  __device__ __forceinline__ void put(int j, int w, int m, int p, int o,
+                                      int e, int nuc_prior) {
+    int x[NV];
+    Cell::enter(w, m, p, o, e, nuc_prior, carry, x);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) v[i][j] = x[i];
+  }
+
+  // positions 0..15 into slots 0..15, then row 0
+  __device__ __forceinline__ void init(const Tracks& g) {
+    carry = {};
+#pragma unroll
+    for (int j = 0; j < D; ++j)
+      put(j, g.at(g.win[WIN], j), g.at(g.win[MASK], j), g.at(g.win[PRIOR], j),
+          g.at(g.win[OPN], j), g.at(g.win[EXT], j), g.nuc_prior);
+    Cell::row0(v, M, I, Dl);
+  }
+
+  // slot k takes slot (k + S) % 16's values
+  template <int S>
+  __device__ __forceinline__ void rotate() {
+    if constexpr (S % D != 0) {
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        int old[D];
+#pragma unroll
+        for (int k = 0; k < D; ++k) old[k] = v[i][k];
+#pragma unroll
+        for (int k = 0; k < D; ++k) v[i][k] = old[(k + S) & (D - 1)];
+      }
+    }
+  }
+
+  // row y, whose diagonal 0 reads slot U
+  template <int U, bool ROW1>
+  __device__ __forceinline__ void row(int y, const Tracks& g, const int* s) {
+    const int lane = threadIdx.x;
+    const int t = s[Rows::at(Rows::TGT, y - 1, lane)];
+    const int q = s[Rows::at(Rows::QUAL, y - 1, lane)];
+    int mi_prev = INF, chain = INF;
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      const int sl = (U + k) & (D - 1);
+      if (k + 1 < D) {
+        const int m_up = ROW1 ? (((k + 1) & 1) ? 0 : INF) : M[up1(k)];
+        Cell::template cell<false>(t, q, v, sl, m_up, I[up1(k)],
+                                   g.nuc_prior, M[k], I[k], Dl[k], mi_prev,
+                                   chain);
+      } else {
+        Cell::template cell<true>(t, q, v, sl, INF, INF, g.nuc_prior, M[k],
+                                  I[k], Dl[k], mi_prev, chain);
+      }
+      if (k == 0) {
+        // slot U is done: position y+15 into it, read by row y+1 last;
+        // past the last window row the ring holds a value no row reads
+        const int r = y + D - 1;
+        put(U, s[Rows::at(WIN, r, lane)], s[Rows::at(MASK, r, lane)],
+            s[Rows::at(PRIOR, r, lane)], s[Rows::at(OPN, r, lane)],
+            s[Rows::at(EXT, r, lane)], g.nuc_prior);
+      }
+    }
+  }
+
+  // row y, step U of its body; false past R
+  template <int U>
+  __device__ __forceinline__ bool step(int y, const Tracks& g, int* s,
+                                       int first) {
+    if (y > g.R) return false;
+    if ((y - 1) % Rows::C == 0) turn<L>((y - 1) / Rows::C, g, s, first);
+    this->template row<U, false>(y, g, s);
+    return true;
+  }
+
+  // rows y0 .. y0+P-1, up to R, then the slots for row y0+P
+  template <int... Is>
+  __device__ __forceinline__ void body(std::integer_sequence<int, Is...>,
+                                       int y0, const Tracks& g, int* s,
+                                       int first) {
+    if ((... && this->template step<Is>(y0 + Is, g, s, first)))
+      this->template rotate<P>();
+  }
+
+  __device__ __forceinline__ int best() const {
+    int out = INF;
+#pragma unroll
+    for (int k = 0; k < D; ++k) out = min(out, min3(M[k], I[k], Dl[k]));
+    return out;
+  }
+};
+
+// A register design's kernel body: this thread's pair of the block's L
+// (first the block's first), its score into out.
+template <int L, int P, class Cell>
+__device__ __forceinline__ void regs_pairs(const Tracks& g, int* smem,
+                                           int first, int* out) {
+  NewRows<L>::stage(smem, 0, g.win, g.tgt, g.qual, g.R, g.W, g.B, first);
+  RegWindows<L, P, Cell> st;
+  st.init(g);
+  turn<L>(0, g, smem, first);
+  st.template row<0, true>(1, g, smem);
+  st.template rotate<1>();  // slot k: position 1+k, for row 2
+#pragma unroll 1
+  for (int y0 = 2; y0 <= g.R; y0 += P)
+    st.body(std::make_integer_sequence<int, P>{}, y0, g, smem, first);
+  cp_async_wait<0>();
+  out[g.b] = st.best();
 }
 
 // shape checks shared by the entry points: pad 8, W = R + 15, B > 0

@@ -9,9 +9,10 @@
 // Its plain version is pairhmm_batch.pairhmm_scores_plain on the
 // transposed tracks (kernel_experiments/v11_kernel.py).
 //
-// The Hopper design (`regs`): one thread a pair, as csrc/exp_rows.cuh's
-// dual_chain K1, with the 16 window values of each of the five window
-// tracks in the thread's own registers. Row y's diagonal k reads window
+// The Hopper design (`regs`, csrc/exp_rows.cuh's RegWindows with the raw
+// values in its slots): one thread a pair, as dual_chain K1, with the 16
+// window values of each of the five window tracks in the thread's own
+// registers. Row y's diagonal k reads window
 // row y-1+k, and once its diagonal 0 is done, window row y+15 (the last
 // one row y+1 reads) is loaded into the register that row y-1 left. The
 // row loop is unrolled over P rows, so every register index is a constant:
@@ -50,8 +51,6 @@
 // pre and the scan stay in int32 and _min_scan's INF fill is kept, so a
 // lane below the step takes min(u, INF) as on the TPU).
 
-#include <utility>
-
 #include "exp_rows.cuh"
 
 using namespace pairhmm;
@@ -59,6 +58,9 @@ using namespace pairhmm;
 namespace {
 
 constexpr int D = 16;  // band of pad 8: two pairs a warp in `shfl`
+
+using exp_rows::NewRows;
+using exp_rows::Tracks;
 
 __device__ __forceinline__ int from_below(int x, int d, int fill) {
   const int v = __shfl_up_sync(FULL, x, 1, D);
@@ -168,203 +170,48 @@ cudaError_t launch_shfl(const int* const* t, int* out, int B, int R,
 // The Hopper design: window tracks in one thread's registers
 // --------------------------------------------------------------------------
 
-// The new rows of a block of L pairs, staged by 16-byte cp.async into rings
-// of RN rows a track (two chunks of C rows): chunk c brings read rows
-// [cC, cC+C) of tgt and qual and window rows [cC+D, cC+C+D) of the five
-// window tracks, what rows cC+1 .. cC+C read beyond the first 16 window
-// rows. A ring row holds the block's L pairs side by side.
-template <int L>
-struct NewRows {
-  static constexpr int C = 8;
-  static constexpr int RN = 2 * C;
-  static constexpr int TGT = N_WINDOW, QUAL = N_WINDOW + 1;
-  static constexpr size_t BYTES = (size_t)(N_WINDOW + 2) * RN * L * sizeof(int);
-  static_assert(L % 4 == 0, "16-byte copies");
+// A slot of the register window (exp_rows.cuh's RegWindows): the five
+// raw window values of a position (win, mask, prior, opn, ext), v9's cell.
+struct V9Slots {
+  static constexpr int NV = 5;
+  struct Carry {};
 
-  // word of track `track`, ring row `row`, column `col`
-  __device__ __forceinline__ static int at(int track, int row, int col) {
-    return (track * RN + (row & (RN - 1))) * L + col;
+  __device__ __forceinline__ static void enter(int w, int m, int p, int o,
+                                               int e, int, Carry&,
+                                               int (&x)[NV]) {
+    x[0] = w;
+    x[1] = m;
+    x[2] = p;
+    x[3] = o;
+    x[4] = e;
   }
 
-  // rows [r0, min(r0 + C, len)) of one (len, B) track, the block's columns
-  __device__ __forceinline__ static void copy(int* s, int track,
-                                              const int* __restrict__ g,
-                                              int len, int B, int r0,
-                                              int first) {
-    constexpr int V = L / 4;
-    const int n = (min(r0 + C, len) - r0) * V;
-    for (int i = threadIdx.x; i < n; i += L) {
-      const int r = r0 + i / V;
-      const int v = 4 * (i % V);
-      exp_rows::cp_async16(s + at(track, r, v), g + (size_t)r * B + first + v);
-    }
-  }
-
-  // start chunk c's copies (none past the last row), one commit group
-  __device__ __forceinline__ static void stage(int* s, int c,
-                                               const int* const* win_g,
-                                               const int* tgt,
-                                               const int* qual, int R, int W,
-                                               int B, int first) {
-    if (c * C < R) {
-#pragma unroll
-      for (int k = 0; k < N_WINDOW; ++k)
-        copy(s, k, win_g[k], W, B, c * C + D, first);
-      copy(s, TGT, tgt, R, B, c * C, first);
-      copy(s, QUAL, qual, R, B, c * C, first);
-    }
-    cp_async_commit();
-  }
-};
-
-// Kernel-layout tracks of one launch and this thread's pair.
-struct Tracks {
-  const int* __restrict__ tgt;
-  const int* __restrict__ qual;
-  const int* win[N_WINDOW];  // WIN, MASK, PRIOR, OPN, EXT
-  int B, R, W, b, nuc_prior;
-
-  __device__ __forceinline__ int at(const int* t, int row) const {
-    return __ldg(t + (size_t)row * B + b);
-  }
-};
-
-// The chunk turn before row y = cC + 1: every lane is done with chunk
-// c-1, whose ring rows take chunk c+1; chunk c has landed. Out of line, so
-// that an unrolled body holds one call, not one copy, for each row that
-// may start a chunk.
-template <int L>
-__device__ __noinline__ void turn_chunk(int c, int* s, const int* tgt,
-                                        const int* qual, const int* win,
-                                        const int* mask, const int* prior,
-                                        const int* opn, const int* ext, int R,
-                                        int W, int B, int first) {
-  const int* win_g[N_WINDOW] = {win, mask, prior, opn, ext};
-  __syncthreads();
-  NewRows<L>::stage(s, c + 1, win_g, tgt, qual, R, W, B, first);
-  cp_async_wait<1>();
-  __syncthreads();
-}
-
-template <int L>
-__device__ __forceinline__ void turn(int c, const Tracks& g, int* s,
-                                     int first) {
-  turn_chunk<L>(c, s, g.tgt, g.qual, g.win[WIN], g.win[MASK], g.win[PRIOR],
-                g.win[OPN], g.win[EXT], g.R, g.W, g.B, first);
-}
-
-// One pair's state: the window slots and M, I and D of its 16 diagonals.
-// The row loop is unrolled over P rows (P divides 16); at the start of
-// each unrolled body slot k holds window row y0-1+k for the body's first
-// row y0, so row y0+i's diagonal k reads slot (i+k) % 16, all constants.
-// At P = 16 a body ends where the next begins; below 16 the slots rotate
-// by P after each body (80 register moves), which trades moves for code
-// size.
-template <int L, int P>
-struct RegWindows {
-  static_assert(D % P == 0, "bodies of a divisor of the band");
-  using Rows = NewRows<L>;
-  int w[D], m[D], p[D], o[D], e[D];
-  int M[D], I[D], Dl[D];
-
-  // window rows 0..15 into slots 0..15; row 0 (M = 0, I = INF, deletions
-  // from the parity-masked M0 with opn and ext shifted down one diagonal)
-  __device__ __forceinline__ void init(const Tracks& g) {
-#pragma unroll
-    for (int j = 0; j < D; ++j) {
-      w[j] = g.at(g.win[WIN], j);
-      m[j] = g.at(g.win[MASK], j);
-      p[j] = g.at(g.win[PRIOR], j);
-      o[j] = g.at(g.win[OPN], j);
-      e[j] = g.at(g.win[EXT], j);
-    }
+  // row 0: M = 0, I = INF, deletions from the parity-masked M0 with opn
+  // and ext shifted down one diagonal
+  __device__ __forceinline__ static void row0(const int (&v)[NV][D],
+                                              int (&M)[D], int (&I)[D],
+                                              int (&Dl)[D]) {
 #pragma unroll
     for (int d = 0; d < D; ++d) {
       const int m_gap_prev = (d == 0) ? INF : (((d - 1) & 1) ? 0 : INF);
-      const int bv = m_gap_prev + ((d == 0) ? INF : o[d > 0 ? d - 1 : 0]);
-      const int ed = (d == 0) ? 0 : e[d > 0 ? d - 1 : 0];
+      const int bv = m_gap_prev + ((d == 0) ? INF : v[3][d > 0 ? d - 1 : 0]);
+      const int ed = (d == 0) ? 0 : v[4][d > 0 ? d - 1 : 0];
       Dl[d] = addmin(d == 0 ? INF : Dl[d > 0 ? d - 1 : 0], ed, bv);
       M[d] = 0;
       I[d] = INF;
     }
   }
 
-  // slot k takes slot (k + S) % 16's value
-  template <int S>
-  __device__ __forceinline__ static void rotate(int (&a)[D]) {
-    int old[D];
-#pragma unroll
-    for (int k = 0; k < D; ++k) old[k] = a[k];
-#pragma unroll
-    for (int k = 0; k < D; ++k) a[k] = old[(k + S) & (D - 1)];
-  }
-
-  template <int S>
-  __device__ __forceinline__ void rotate() {
-    if constexpr (S % D != 0) {
-      rotate<S>(w);
-      rotate<S>(m);
-      rotate<S>(p);
-      rotate<S>(o);
-      rotate<S>(e);
-    }
-  }
-
-  // row y, whose diagonal 0 reads slot U
-  template <int U, bool ROW1>
-  __device__ __forceinline__ void row(int y, const Tracks& g, const int* s) {
-    const int lane = threadIdx.x;
-    const int t = s[Rows::at(Rows::TGT, y - 1, lane)];
-    const int q = s[Rows::at(Rows::QUAL, y - 1, lane)];
-    int mi_prev = INF, d_prev = INF;
-#pragma unroll
-    for (int k = 0; k < D; ++k) {
-      const int sl = (U + k) & (D - 1);
-      int m_up = INF, i_up = INF;
-      if (k + 1 < D) {
-        m_up = ROW1 ? (((k + 1) & 1) ? 0 : INF) : M[exp_rows::up1(k)];
-        i_up = I[exp_rows::up1(k)];
-      }
-      exp_rows::v9_cell(t, q, w[sl], m[sl], p[sl], o[sl], e[sl], m_up,
-                        i_up, g.nuc_prior, M[k], I[k], Dl[k], mi_prev,
-                        d_prev);
-      if (k == 0) {
-        // slot U is done: window row y+15 into it, read by row y+1 last;
-        // past the last window row the ring holds a value no row reads
-        const int r = y + D - 1;
-        w[U] = s[Rows::at(WIN, r, lane)];
-        m[U] = s[Rows::at(MASK, r, lane)];
-        p[U] = s[Rows::at(PRIOR, r, lane)];
-        o[U] = s[Rows::at(OPN, r, lane)];
-        e[U] = s[Rows::at(EXT, r, lane)];
-      }
-    }
-  }
-
-  // row y, step U of its body; false past R
-  template <int U>
-  __device__ __forceinline__ bool step(int y, const Tracks& g, int* s,
-                                       int first) {
-    if (y > g.R) return false;
-    if ((y - 1) % Rows::C == 0) turn<L>((y - 1) / Rows::C, g, s, first);
-    this->template row<U, false>(y, g, s);
-    return true;
-  }
-
-  // rows y0 .. y0+P-1, up to R, then the slots for row y0+P
-  template <int... Is>
-  __device__ __forceinline__ void body(std::integer_sequence<int, Is...>,
-                                       int y0, const Tracks& g, int* s,
-                                       int first) {
-    if ((... && this->template step<Is>(y0 + Is, g, s, first)))
-      this->template rotate<P>();
-  }
-
-  __device__ __forceinline__ int best() const {
-    int out = INF;
-#pragma unroll
-    for (int k = 0; k < D; ++k) out = min(out, min3(M[k], I[k], Dl[k]));
-    return out;
+  template <bool LAST>
+  __device__ __forceinline__ static void cell(int t, int q,
+                                              const int (&v)[NV][D], int sl,
+                                              int m_up, int i_up,
+                                              int nuc_prior, int& M, int& I,
+                                              int& Dl, int& mi_prev,
+                                              int& d_prev) {
+    exp_rows::v9_cell(t, q, v[0][sl], v[1][sl], v[2][sl], v[3][sl],
+                      v[4][sl], m_up, i_up, nuc_prior, M, I, Dl, mi_prev,
+                      d_prev);
   }
 };
 
@@ -379,17 +226,7 @@ regs_kernel(const int* __restrict__ tgt, const int* __restrict__ qual,
   const int first = blockIdx.x * L;
   const Tracks g{tgt, qual, {win, mask, prior, opn, ext}, B, R, W,
                  first + (int)threadIdx.x, nuc_prior};
-  NewRows<L>::stage(smem, 0, g.win, tgt, qual, R, W, B, first);
-  RegWindows<L, P> st;
-  st.init(g);
-  turn<L>(0, g, smem, first);
-  st.template row<0, true>(1, g, smem);
-  st.template rotate<1>();  // slot k: window row 1+k, for row 2
-#pragma unroll 1
-  for (int y0 = 2; y0 <= R; y0 += P)
-    st.body(std::make_integer_sequence<int, P>{}, y0, g, smem, first);
-  cp_async_wait<0>();
-  out[g.b] = st.best();
+  exp_rows::regs_pairs<L, P, V9Slots>(g, smem, first, out);
 }
 
 template <int L, int P>

@@ -30,7 +30,7 @@ PARITY_B = 1024          # their check_parity batch
 ENTRIES = {
     "dual_chain": ("exp_dual_launch", 8, 6),   # B R W pad nuc_prior K
     "v13": ("exp_v13_launch", 8, 7),           # ... K schedule
-    "v10": ("exp_v10_launch", 11, 5),          # B R W pad K
+    "v10": ("exp_v10_launch", 11, 6),          # B R W pad nuc_prior variant
     "v11": ("exp_v11_launch", 9, 6),           # B R W pad nuc_prior variant
     "i16": ("exp_i16_launch", 3, 3),           # D B pack
 }
@@ -44,6 +44,7 @@ HEADERS = {"dual_chain": ("exp_rows.cuh", "pairhmm_stage.cuh"),
 # SM, threads, shared memory and pairs a block of the variant the ints name
 OCCUPANCY = {"dual_chain": ("exp_dual_occupancy", 1),   # K
              "v13": ("exp_v13_occupancy", 2),           # K schedule
+             "v10": ("exp_v10_occupancy", 1),           # variant
              "v11": ("exp_v11_occupancy", 1)}           # variant
 # launches of each experiment's kernel, counted where its wrapper launches it
 COUNTS = {name: KernelCounts() for name in ENTRIES}

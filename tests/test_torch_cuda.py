@@ -456,11 +456,17 @@ def _experiment_cases():
         return xc.plain_v9(t, 8, 2)
 
     cases = [(e, v, fn, v9) for e, v, fn in cases]
-    cases += [("v10", f"K{K}",
-               lambda t, K=K: v10_kernel.scores_v10_cuda(*t, K=K),
+    # the default through its entry point (K sets only the batch rule)
+    v10 = [(v, lambda t, v=v: v10_kernel.tracks10_call(t, variant=v)
+            if v.startswith("tracks10") else
+            v10_kernel.scores_v10_cuda(*t)
+            if v == v10_kernel.DEFAULT_VARIANT else
+            v10_kernel.launch_v10(t, pad=8, nuc_prior=2, variant=v))
+           for v in v10_kernel.VARIANTS]
+    cases += [("v10", v, fn,
                lambda t: v10_kernel.v10_rows_plain(v10_kernel.v10_tracks(*t),
                                                    pad=8))
-              for K in v10_kernel.K_VARIANTS]
+              for v, fn in v10]
     return cases
 
 
@@ -468,7 +474,9 @@ EXPERIMENT_VARIANTS = ["dual_chain-K1", "dual_chain-K2", "dual_chain-K4",
                        "v11-regs_ring_p4", "v11-regs_ring_p16",
                        "v11-shfl_blk1", "v11-shfl_blk2", "v13-shared_K1",
                        "v13-shared_K2", "v13-K4x2", "v13-K4x1", "v13-K6x2",
-                       "v13-K6x1", "v10-K1", "v10-K2", "v10-K4", "v10-K8"]
+                       "v13-K6x1", "v10-regs_p16", "v10-rings",
+                       "v10-tracks10_K1", "v10-tracks10_K2",
+                       "v10-tracks10_K4", "v10-tracks10_K8"]
 
 
 @pytest.mark.parametrize("rows", [150, 33, 7])
@@ -489,21 +497,22 @@ def test_kernel_experiments_match_their_plain_versions(cuda, variant, rows):
 
 
 EDGE_VARIANTS = [v for v in EXPERIMENT_VARIANTS
-                 if v.startswith(("v11-", "v13-"))]
+                 if v.startswith(("v10-", "v11-", "v13-"))]
 
 
 @pytest.mark.parametrize("edge", range(6))
 @pytest.mark.parametrize("variant", EDGE_VARIANTS)
 def test_v11_v13_variants_match_at_edge_shapes(cuda, variant, edge):
-    """Every v11 and v13 variant, the Hopper designs and the first ports,
-    equals the plain version and kernel #1 on the edge inputs (odd and even
-    R from 2, R off the 16-row period and the 8-row chunk, half the window
-    bases N, opn and ext just below 2^22)."""
+    """Every v10, v11 and v13 variant, the Hopper designs and the first
+    ports, equals the plain version and kernel
+    #1 on the edge inputs (odd and even R from 2, R off the 16-row period
+    and the 8-row chunk, half the window bases N, opn and ext just below
+    2^22), on 3,072 pairs (a multiple of every variant's 128 K)."""
     from octopus_tpu_torch.kernel_experiments import _common as xc
     rows, kind = xc.EDGE_CASES[edge]
     fn, plain = {f"{e}-{v}": (fn, plain)
                  for e, v, fn, plain in _experiment_cases()}[variant]
-    t = xc.as_tracks(xc.edge_inputs(1536, rows, kind, seed=edge), cuda)
+    t = xc.as_tracks(xc.edge_inputs(3072, rows, kind, seed=edge), cuda)
     got = fn(t)
     torch.cuda.synchronize()
     assert torch.equal(got, plain(t))
@@ -512,9 +521,11 @@ def test_v11_v13_variants_match_at_edge_shapes(cuda, variant, edge):
 
 @pytest.mark.parametrize("name,ints", [
     ("v11", (100, 0)), ("v11", (100, 1)), ("v13", (96, 6, 1)),
-    ("v13", (96, 2, 3)), ("v13", (256, 3, 3))],
+    ("v13", (96, 2, 3)), ("v13", (256, 3, 3)), ("v10", (100, 0)),
+    ("v10", (96, 5)), ("v10", (256, 6))],
     ids=["v11-regs_ring_p4", "v11-regs_ring_p16", "v13-K6x2", "v13-shared_K2",
-         "v13-no_such_K"])
+         "v13-no_such_K", "v10-regs_p16", "v10-tracks10_K8",
+         "v10-no_such_variant"])
 def test_refused_experiment_launches_raise(cuda, name, ints):
     """A launch the C entry point refuses (B not a multiple of the block's
     pairs, or no such instantiation) raises and is not counted."""
@@ -523,7 +534,7 @@ def test_refused_experiment_launches_raise(cuda, name, ints):
     t = xc.as_tracks(xc.parity_inputs(B, 5, rows=9), cuda)
     out = torch.empty(B, dtype=torch.int32, device=cuda)
     before = xc.COUNTS[name].launches
-    ptrs = t + [None] if name == "v11" else t
+    ptrs = t + [None] * {"v11": 1, "v10": 3}.get(name, 0)
     with pytest.raises(RuntimeError, match="launch failed"):
         xc.launch(name, ptrs, out, (B, 9, 24, 8, 2) + ints[1:])
     assert xc.COUNTS[name].launches == before

@@ -7,9 +7,10 @@ point (octopus_tpu_torch/kernel_experiments/) runs its plain version on the
 same numpy-seeded inputs, the experiments' check_parity distributions, for
 every K or blk of the experiment's __main__. Scores are int32 and int16, so
 every comparison is exact. v10's rewritten arithmetic is also held against
-Pallas v9 directly. The kernels themselves (csrc/exp_*.cu) run on the card
-in test_torch_cuda.py; here their wrappers must refuse CPU tensors and a
-missing card.
+Pallas v9 directly, and so is the order of work of v10's Hopper kernel
+(`v10_schedule_plain`), against Pallas v10 too. The kernels themselves
+(csrc/exp_*.cu) run on the card in test_torch_cuda.py; here their wrappers
+must refuse CPU tensors and a missing card.
 """
 
 import functools
@@ -49,6 +50,20 @@ def experiment(name):
 def interpret(fn, *args, **kw):
     with pltpu.force_tpu_interpret_mode():
         return np.asarray(fn(*args, **kw))
+
+
+@functools.cache
+def reference(name, fn_name, B, win_hi, rows=xc.R, kind=None, **kw):
+    """experiments/<name>.py's fn_name in interpret mode on `inputs`."""
+    return interpret(getattr(experiment(name), fn_name),
+                     *inputs(B, win_hi, rows, kind), pad=xc.PAD, **kw)
+
+
+@functools.cache
+def reference_v9(B, win_hi, rows=xc.R, kind=None):
+    """Pallas v9 in interpret mode on `inputs`."""
+    return interpret(pairhmm_scores_pallas_v9, *inputs(B, win_hi, rows, kind),
+                     pad=xc.PAD, interpret=True)
 
 
 @functools.cache
@@ -100,8 +115,7 @@ def case_id(case):
 def test_port_equals_the_experiment(name, fn_name, port, kw, B, win_hi, rows,
                                     kind):
     tracks = inputs(B, win_hi, rows, kind)
-    want = interpret(getattr(experiment(name), fn_name), *tracks,
-                     pad=xc.PAD, **kw)
+    want = reference(name, fn_name, B, win_hi, rows, kind, **kw)
     got = port(*tracks, pad=xc.PAD, device="cpu", **kw).numpy()
     assert got.dtype == np.int32 and got.shape == (B,)
     np.testing.assert_array_equal(got, want)
@@ -111,12 +125,36 @@ def test_v10_rewrite_equals_pallas_v9():
     """v10's own arithmetic (prologue tracks, capN, primed deletion scan)
     gives v9's integers."""
     tracks = inputs(1024, 5)
-    want = interpret(pairhmm_scores_pallas_v9, *tracks, pad=xc.PAD,
-                     interpret=True)
+    want = reference_v9(1024, 5)
     t = [torch.from_numpy(a) for a in tracks]
     got = v10_kernel.v10_rows_plain(v10_kernel.v10_tracks(*t), pad=xc.PAD)
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(xc.plain_v9(t, xc.PAD, 2).numpy(), want)
+
+
+# (B, rows, kind): the parity input, then every edge shape
+V10_SCHEDULE_CASES = [(1024, xc.R, None)] + [(128, rows, kind)
+                                             for rows, kind in xc.EDGE_CASES]
+
+
+@pytest.mark.parametrize("B,rows,kind", V10_SCHEDULE_CASES,
+                         ids=[f"R{r}-{k or 'check_parity'}"
+                              for _, r, k in V10_SCHEDULE_CASES])
+def test_v10_schedule_equals_pallas_v10_and_v9(B, rows, kind):
+    """The order of work of v10's Hopper kernel (values derived once a
+    window position as it enters the band, pre a running sum, row 0 from
+    the first 16 positions) gives Pallas v10's and v9's integers and the
+    plain version's, at the parity input and the edge shapes (R 2-41, half
+    N, opn and ext near 2^22)."""
+    t = [torch.from_numpy(a) for a in inputs(B, 5, rows, kind)]
+    got = v10_kernel.v10_schedule_plain(*t, pad=xc.PAD).numpy()
+    assert got.dtype == np.int32 and got.shape == (B,)
+    np.testing.assert_array_equal(
+        got, reference("v10_kernel", "scores_v10", B, 5, rows, kind, K=1))
+    np.testing.assert_array_equal(got, reference_v9(B, 5, rows, kind))
+    np.testing.assert_array_equal(
+        got, v10_kernel.v10_rows_plain(v10_kernel.v10_tracks(*t),
+                                       pad=xc.PAD).numpy())
 
 
 def test_i16_probe_equals_the_experiment_on_its_input():
@@ -144,7 +182,12 @@ CUDA_WRAPPERS = {
     "dual_chain": lambda t: dual_chain.scores_dual_cuda(*t),
     "v10": lambda t: v10_kernel.scores_v10_cuda(*t),
     "v10_launch": lambda t: v10_kernel.launch_v10(v10_kernel.v10_tracks(*t),
-                                                  pad=8, K=4),
+                                                  pad=8, variant="tracks10_K4"),
+    "v10_regs_p16": lambda t: v10_kernel.launch_v10(t, pad=8,
+                                                    variant="regs_p16"),
+    "v10_rings": lambda t: v10_kernel.launch_v10(t, pad=8, variant="rings"),
+    "v10_tracks10_call": lambda t: v10_kernel.tracks10_call(
+        t, variant="tracks10_K2"),
     "v11": lambda t: v11_kernel.scores_v11_cuda(*t),
     "v11_launch": lambda t: v11_kernel.launch_v11(
         t, v11_kernel.v11_pre(t[4]), pad=8, nuc_prior=2, variant="shfl_blk1"),
@@ -182,6 +225,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry,
 
 @pytest.mark.parametrize("port,kw", [
     (dual_chain.scores_dual, {"K": 4}), (v10_kernel.scores_v10, {"K": 8}),
+    (v10_kernel.scores_v10, {"K": 2}),
     (v11_kernel.scores_v11, {"blk": 2}), (v13_unroll2.scores_v13, {"K": 6})])
 def test_batch_must_divide_as_in_the_experiment(port, kw):
     with pytest.raises(ValueError, match="multiple"):
@@ -190,8 +234,9 @@ def test_batch_must_divide_as_in_the_experiment(port, kw):
 
 @pytest.mark.parametrize("launch", [
     lambda t: v11_kernel.launch_v11(t, pad=8, nuc_prior=2, variant="blk1"),
-    lambda t: v13_unroll2.launch_v13(t, pad=8, nuc_prior=2, variant="K8x2")],
-    ids=["v11", "v13"])
+    lambda t: v13_unroll2.launch_v13(t, pad=8, nuc_prior=2, variant="K8x2"),
+    lambda t: v10_kernel.launch_v10(t, pad=8, variant="K4")],
+    ids=["v11", "v13", "v10"])
 def test_launch_refuses_unknown_variants(launch):
     with pytest.raises(ValueError, match="variants"):
         launch(_cpu_tracks(256))
@@ -202,3 +247,14 @@ def test_v11_shfl_variants_take_pre():
     with pytest.raises(ValueError, match="pre"):
         v11_kernel.launch_v11(t, pad=8, nuc_prior=2, variant="shfl_blk2")
     assert v11_kernel.v11_pre(t[4]).shape == t[4].shape
+
+
+def test_v10_tracks10_takes_the_prologue_tracks():
+    """The first port's variants read the prologue's ten tracks, the Hopper
+    designs the seven raw ones."""
+    t = _cpu_tracks(256)
+    with pytest.raises(ValueError, match="takes the tracks"):
+        v10_kernel.launch_v10(t, pad=8, variant="tracks10_K1")
+    with pytest.raises(ValueError, match="tracks must be"):
+        v10_kernel.launch_v10(v10_kernel.v10_tracks(*t), pad=8,
+                              variant="regs_p16")

@@ -1,0 +1,213 @@
+"""The comparison has to fail its controls and every fault a cell can have.
+
+The controls put a plain reference, in a narrower type, in the program's
+place in one layer: the pair-HMM in int8, saturating at 127 (int16, the
+reference SSE2 kernel's own width, is exact at these reads' scores, as a
+case here shows), and the VB in bfloat16. The faults are planted in the
+program underneath a run whose chip look is skipped
+(`run_cell(device="cpu")`): one answer of the pair-HMM altered where it is
+produced, on the host DP and on the card's scorer; one VB answer altered;
+the card's scorer or the VB reached past the seams the harness watches;
+half of the shards' records left out; every record's genotype altered. A
+cell on one card has no exchange between chips, and no step state to leave
+unchanged."""
+
+import json
+
+import pytest
+import torch
+
+from benchmark import cell
+
+SPEC = cell.load_spec()
+WORKLOADS = [w["name"] for w in SPEC["workloads"]]
+SMALL = {"contig_kb": 20, "shard_kb": 5}
+SOMATIC = "somatic-t60n30.subclonal"
+# the int8 control needs some scores above 127, which at 0.1% errors a
+# window's first shard of tumour and normal reads holds
+CONTROL_SIZE = {"contig_kb": 40, "shard_kb": 10}
+
+
+def config_of(workload):
+    return cell.load_cell(SPEC, workload)[1]
+
+
+def rehearse(workload, tmp_path, seconds=2, size=SMALL, **kw):
+    return cell.run_cell(workload, 2**31 + 17, seconds, False, device="cpu",
+                         traffic_override=size, tmp_root=str(tmp_path), **kw)
+
+
+@pytest.fixture(autouse=True)
+def few_threads(monkeypatch):
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    monkeypatch.delenv("OCTOPUS_TPU_HOST_HMM_MAX", raising=False)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_control_fails_and_int16_does_not(tmp_path):
+    """At a test's size on the CPU, on one window: the program is correct,
+    the int8 and bfloat16 controls are not, and int16 loses nothing."""
+    res = rehearse(SOMATIC, tmp_path, 8, CONTROL_SIZE,
+                   controls=("int8", "int16", "bfloat16"))
+    assert res["correct"], res["checks"]
+    controls = res["controls"]
+    assert not controls["int8"]["correct"]
+    assert controls["int8"]["checks"]["hmm_err"]["value"] > 0
+    assert controls["int16"]["checks"]["hmm_err"]["value"] == 0
+    assert not controls["bfloat16"]["correct"]
+    vb = controls["bfloat16"]["checks"]["vb_err"]
+    assert vb["value"] > vb["limit"]
+
+
+def altered_host_dp(monkeypatch):
+    from octopus_tpu_torch._build import load_native
+    native = load_native()
+    flank = native.flank_banded_scores
+
+    def wrong(*args):
+        raw = bytearray(flank(*args))
+        raw[0] ^= 1                     # the first answer, off by one
+        return bytes(raw)
+
+    monkeypatch.setattr(native, "flank_banded_scores", wrong)
+
+
+def altered_card_scorer(monkeypatch):
+    from octopus_tpu_torch.core.likelihood import pairhmm_batch
+    monkeypatch.setenv("OCTOPUS_TPU_HOST_HMM_MAX", "0")   # every job set to the scorer
+    scores = pairhmm_batch.pairhmm_scores_plain            # the card's twin here
+
+    def wrong(*args, **kw):
+        out = scores(*args, **kw).clone()
+        out[0] += 1
+        return out
+
+    monkeypatch.setattr(pairhmm_batch, "pairhmm_scores_plain", wrong)
+
+
+def hidden_card_scorer(monkeypatch):
+    """The likelihood layer reaches the scorer by another name, which the
+    harness does not watch: the scores are right, and unseen."""
+    from octopus_tpu_torch.core.likelihood import likelihood_array as la
+    from octopus_tpu_torch.core.likelihood import pairhmm_batch
+    monkeypatch.setenv("OCTOPUS_TPU_HOST_HMM_MAX", "0")
+    plain = pairhmm_batch.pairhmm_scores_plain
+
+    def other(*tracks, pad=8, nuc_prior=2, device=None):
+        return plain(*(torch.as_tensor(t) for t in tracks), pad=pad,
+                     nuc_prior=nuc_prior)
+
+    monkeypatch.setattr(la, "pairhmm_scores", other)
+
+
+def altered_vb(monkeypatch):
+    from octopus_tpu_torch.core.models import subclone_vb
+    engine = subclone_vb.vb_subclone
+
+    def wrong(*args, **kw):
+        elbo, alpha, resp = engine(*args, **kw)
+        return elbo + 1.0, alpha, resp                  # one nat on every row
+
+    monkeypatch.setattr(subclone_vb, "vb_subclone", wrong)
+
+
+def hidden_vb(monkeypatch):
+    """The model reaches the VB engine by another name."""
+    from octopus_tpu_torch.core.models import subclone_vb
+    engine = subclone_vb.vb_subclone
+    evaluate = subclone_vb.SubcloneModel.evaluate
+
+    def other(self, *args, **kw):
+        saved = subclone_vb.vb_subclone
+        subclone_vb.vb_subclone = engine
+        try:
+            return evaluate(self, *args, **kw)
+        finally:
+            subclone_vb.vb_subclone = saved
+
+    monkeypatch.setattr(subclone_vb.SubcloneModel, "evaluate", other)
+
+
+def shard_outputs(monkeypatch, edit):
+    """Run `edit(path, index)` on every shard's VCF once it is written."""
+    from octopus_tpu_torch import run as program
+    run_calling = program.run_calling
+    calls = [0]
+
+    def edited(args):
+        code = run_calling(args)
+        calls[0] += 1
+        edit(args.output, calls[0])
+        return code
+
+    monkeypatch.setattr(program, "run_calling", edited)
+
+
+def half_left_out(monkeypatch):
+    def drop(path, k):
+        if k % 2 == 0:
+            with open(path) as fh:
+                head = [l for l in fh if l.startswith("#")]
+            with open(path, "w") as fh:
+                fh.writelines(head)
+    shard_outputs(monkeypatch, drop)
+
+
+def genotypes_altered(monkeypatch):
+    def flip(path, k):
+        with open(path) as fh:
+            lines = fh.readlines()
+        out = []
+        for line in lines:
+            if not line.startswith("#"):
+                f = line.rstrip("\n").split("\t")
+                for j in range(9, len(f)):
+                    gt, _, rest = f[j].partition(":")
+                    sep = "|" if "|" in gt else "/"
+                    a = gt.split(sep)
+                    new = "1" + sep + "1" if a.count("0") else "0" + sep + "1"
+                    f[j] = new + (":" + rest if rest else "")
+                line = "\t".join(f) + "\n"
+            out.append(line)
+        with open(path, "w") as fh:
+            fh.writelines(out)
+    shard_outputs(monkeypatch, flip)
+
+
+FAULTS = {"host_dp_answer": altered_host_dp, "card_answer": altered_card_scorer,
+          "hidden_card_scorer": hidden_card_scorer,
+          "half_the_shards": half_left_out, "genotypes": genotypes_altered}
+VB_FAULTS = {"vb_answer": altered_vb, "hidden_vb": hidden_vb}
+CASES = [(w, f) for w in WORKLOADS for f in FAULTS] + \
+    [(w, f) for w in WORKLOADS if w == SOMATIC for f in VB_FAULTS]
+
+
+@pytest.mark.parametrize("workload,fault", CASES)
+def test_fault_is_not_correct(workload, fault, tmp_path, monkeypatch):
+    {**FAULTS, **VB_FAULTS}[fault](monkeypatch)
+    res = rehearse(workload, tmp_path)
+    assert not res["correct"], res["checks"]
+
+
+def test_sound_run_is_correct(tmp_path):
+    res = rehearse(WORKLOADS[0], tmp_path)
+    assert res["correct"], res["checks"]
+
+
+@pytest.mark.parametrize("workload", WORKLOADS)
+def test_control_on_the_card(workload, tmp_path):
+    """At the cell's own size and load, on three seeds: the program is
+    correct and each control is not (a short window; the readings print)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    controls = ("int8", "bfloat16") if "vb" in config_of(workload) else ("int8",)
+    for seed in (2**31 + 201, 2**31 + 202, 2**31 + 203):
+        res = cell.run_cell(workload, seed, 10, False, controls=controls,
+                            tmp_root=str(tmp_path))
+        print(workload, seed, "program", json.dumps(res["checks"]))
+        for name, control in res["controls"].items():
+            print(workload, seed, name, json.dumps(control["checks"]))
+        assert res["correct"]
+        assert not any(c["correct"] for c in res["controls"].values())

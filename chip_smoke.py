@@ -1355,7 +1355,7 @@ def phase_main_path(device="cuda", kb=REGION_KB):
               "pairs_card": la.ROUTING.device_pairs,
               "genotype_reductions_host": gl.COUNTS.host,
               "genotype_reductions_card": gl.COUNTS.device,
-              "phase_s": dict(timers._totals),
+              "phase_s": timers.totals(),
               "records": len(lines), "truth": len(truth),
               "recall": recall, "precision": precision})
         if recall < 0.95 or precision < 0.95:
@@ -1447,7 +1447,7 @@ def phase_cli(device="cuda", kb=CLI_REGION_KB, tmp=None):
                 lines = [line.rstrip("\n") for line in fh
                          if not line.startswith("#")]
             recall, precision = accuracy(lines, truth)
-            phase_s = dict(timers._totals)
+            phase_s = timers.totals()
             row = {"phase": "cli", "run": label, "timed": timed,
                    "device": device,
                    "wall_s": wall, "wall_s_per_kb": wall / kb,
@@ -1756,7 +1756,7 @@ def run_caller_cli(tmp, phase, label, argv, env, device, timed,
         raise AssertionError(f"{label}: exit code {rc}")
     with open(out) as fh:
         lines = [line.rstrip("\n") for line in fh if not line.startswith("#")]
-    phase_s = dict(timers._totals)
+    phase_s = timers.totals()
     row = {"phase": phase, "run": label, "timed": timed, "device": device,
            "wall_s": wall,
            "phase_s": phase_s,

@@ -366,7 +366,7 @@ def run_bench(fa, bam, truth, kb, depth, extra, tmp, device="cuda",
         torch.cuda.synchronize()
     wall = time.time() - t0
     phases = {k: round(v, 1) for k, v in sorted(
-        timers._totals.items(), key=lambda kv: -kv[1])}
+        timers.totals().items(), key=lambda kv: -kv[1])}
     # parent high-water (includes the simulation phase; rss_after_sim_mb
     # separates the simulator's footprint from the caller's) + the largest
     # child process (the pool's workers)

@@ -75,10 +75,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="preset: no assembler, smaller haplotype limits")
     g.add_argument("--very-fast", action="store_true")
     g.add_argument("--benchmark", action="store_true",
-                   help="print phase timers at exit (reference BENCHMARK build)")
+                   help="print phase timers at exit, self and total "
+                        "seconds (reference BENCHMARK build)")
     g.add_argument("--profile", metavar="DIR", default=None,
                    help="write a torch.profiler trace of the run to "
-                        "DIR/trace.json (chrome://tracing)")
+                        "DIR/trace.json (chrome://tracing): the host "
+                        "phases beside the kernels and copies they issue, "
+                        "on one clock")
     g.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the pair-HMM, the genotype reductions and "
                         "the VB engines run (cuda needs a card and raises "

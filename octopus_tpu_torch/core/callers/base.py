@@ -234,7 +234,9 @@ class CallerBase:
         typical_by_sample = ([median_depth(b) if len(b) else 0.0
                               for b in reads_by_sample]
                              if bad_region_config is not None else None)
-        for begin, end, variants in regions_list:
+        def too_bad(begin, end, variants) -> bool:
+            """Whether the region's reads are so bad that its candidates
+            are erased (caller.cpp:185-199)."""
             severity = Severity.NONE
             if bad_region_config is not None:
                 for b, typ in zip(reads_by_sample, typical_by_sample):
@@ -243,9 +245,21 @@ class CallerBase:
                                           typ, bad_region_config)
                         if s.value > severity.value:
                             severity = s
-            if severity == Severity.HIGH:
-                continue   # candidates erased (caller.cpp:185-199)
-            if len(variants) <= self.MAX_DIRECT_VARIANTS:
+            return severity == Severity.HIGH
+
+        for begin, end, variants in regions_list:
+            if len(variants) > self.MAX_DIRECT_VARIANTS:
+                # dense super-region: step the stateful generator through it
+                # (lagging keeps cross-window phase; holdout/backtrack bound
+                # the tree, haplotype_generator.hpp:60-160); each of its
+                # packets is an active_region phase
+                if not too_bad(begin, end, variants):
+                    calls.extend(self._call_with_generator(variants,
+                                                           reads_by_sample))
+                continue
+            with timers.phase("active_region"):
+                if too_bad(begin, end, variants):
+                    continue
                 ctx = self._build_context(begin, end, variants, reads_by_sample,
                                           all_candidates=candidates)
                 if ctx is not None:
@@ -253,11 +267,6 @@ class CallerBase:
                         new_calls = self._infer_and_call(ctx)
                     self._debug_dump_region(ctx, new_calls)
                     calls.extend(new_calls)
-            else:
-                # dense super-region: step the stateful generator through it
-                # (lagging keeps cross-window phase; holdout/backtrack bound
-                # the tree, haplotype_generator.hpp:60-160)
-                calls.extend(self._call_with_generator(variants, reads_by_sample))
         calls.sort(key=lambda c: (c.begin, c.end))
         return calls
 
@@ -306,22 +315,23 @@ class CallerBase:
             packet = gen.generate()
             if packet is None:
                 break
-            ctx = self._context_from_haplotypes(
-                packet.haplotypes, packet.variants, reads_by_sample,
-                all_candidates=variants,
-                active_begin=packet.active_begin,
-                active_end=packet.active_end)
-            if ctx is None:
-                continue
-            with timers.phase("infer_latents"):
-                new_calls = self._infer_and_call(ctx)
-            self._debug_dump_region(ctx, new_calls)
-            for c in new_calls:
-                # indicators re-call lagged sites; keep the first emission
-                if any(c.begin < e and c.end > b for b, e in called_spans):
+            with timers.phase("active_region"):
+                ctx = self._context_from_haplotypes(
+                    packet.haplotypes, packet.variants, reads_by_sample,
+                    all_candidates=variants,
+                    active_begin=packet.active_begin,
+                    active_end=packet.active_end)
+                if ctx is None:
                     continue
-                calls.append(c)
-                called_spans.append((c.begin, c.end))
+                with timers.phase("infer_latents"):
+                    new_calls = self._infer_and_call(ctx)
+                self._debug_dump_region(ctx, new_calls)
+                for c in new_calls:
+                    # indicators re-call lagged sites; keep the first emission
+                    if any(c.begin < e and c.end > b for b, e in called_spans):
+                        continue
+                    calls.append(c)
+                    called_spans.append((c.begin, c.end))
         return calls
 
     def _flank_state(self, hap_begin, hap_end, active_begin, active_end,

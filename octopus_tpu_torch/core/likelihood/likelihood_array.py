@@ -21,6 +21,11 @@ Per window:
 6. mapping-quality mixture and final clamping
    (haplotype_likelihood_model.cpp:285-303).
 
+Timers phases: steps 1-2 are populate_jobs, 3 populate_shortcut, 4's
+seven tracks populate_stage and its scorers hmm_host_dp or hmm_device, 5
+on a card's job set populate_flank; the bucket loop, the max over anchors,
+the cache writes and 6 stay in the caller's phase.
+
 Output: per sample, an (n_haplotypes, n_reads) float64 matrix with entries
 matching the reference bit-for-bit in score space.
 """
@@ -61,10 +66,13 @@ class RoutingCounts:
     """Where HMM job sets went, by (source, scorer): source "populate" (the
     beam and the likelihood populate) or "assignment" (CSR read
     assignment); scorer "host_dp" (the native host DP) or the
-    pairhmm_batch.scorer_name of the kernel or plain twin that ran."""
+    pairhmm_batch.scorer_name of the kernel or plain twin that ran.
+    shortcut_pairs counts the jobs (read, haplotype, anchor) that the naive
+    shortcuts resolved before any scorer, from either source."""
 
     job_sets: Counter = field(default_factory=Counter)
     pairs: Counter = field(default_factory=Counter)
+    shortcut_pairs: int = 0
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False,
                                   compare=False)
 
@@ -72,6 +80,10 @@ class RoutingCounts:
         with self._lock:
             self.job_sets[(source, scorer)] += 1
             self.pairs[(source, scorer)] += pairs
+
+    def record_shortcuts(self, pairs: int) -> None:
+        with self._lock:
+            self.shortcut_pairs += pairs
 
     def _total(self, counter: Counter, host: bool) -> int:
         return sum(v for (_, scorer), v in counter.items()
@@ -97,6 +109,7 @@ class RoutingCounts:
         with self._lock:
             self.job_sets.clear()
             self.pairs.clear()
+            self.shortcut_pairs = 0
 
 
 ROUTING = RoutingCounts()
@@ -225,30 +238,31 @@ class HaplotypeLikelihoodArray:
         if pad is None:
             pad = cfg.max_indel_error
         self._n_haplotypes = len(haplotypes)
-        penalties = [
-            self._haplotype_penalties(h, None if substitution_masks is None else substitution_masks[i])
-            for i, h in enumerate(haplotypes)
-        ]
-        indices = [self._kmer_index(h) for h in haplotypes]
-        if flank_state is not None and flank_state.lhs_flank <= 0 \
-                and flank_state.rhs_flank <= 0:
-            flank_state = None
-        hap_keys = None
-        if cache is not None:
-            # flank discounting changes raw scores, so the flank extents are
-            # part of the cache key; beam prune rounds and the final populate
-            # of one window share the same flank state and still hit
-            fk = (0, 0) if flank_state is None else (flank_state.lhs_flank,
-                                                     flank_state.rhs_flank)
-            hap_keys = [(haplotype_begin, len(h),
-                         zlib.crc32(h.tobytes()), fk, pad) for h in haplotypes]
-        self._pooled_cap_trig = None
-        if cfg.shared_read_profile and cfg.use_mapping_quality:
-            self._pooled_cap_trig = self._derive_cap_and_trigger(
-                np.concatenate([b.mapq for b in reads_by_sample])
-                if any(len(b) for b in reads_by_sample) else np.zeros(0),
-                np.concatenate([b.lengths() for b in reads_by_sample])
-                if any(len(b) for b in reads_by_sample) else np.zeros(0))
+        with timers.phase("populate_jobs"):
+            penalties = [
+                self._haplotype_penalties(h, None if substitution_masks is None else substitution_masks[i])
+                for i, h in enumerate(haplotypes)
+            ]
+            indices = [self._kmer_index(h) for h in haplotypes]
+            if flank_state is not None and flank_state.lhs_flank <= 0 \
+                    and flank_state.rhs_flank <= 0:
+                flank_state = None
+            hap_keys = None
+            if cache is not None:
+                # flank discounting changes raw scores, so the flank extents are
+                # part of the cache key; beam prune rounds and the final populate
+                # of one window share the same flank state and still hit
+                fk = (0, 0) if flank_state is None else (flank_state.lhs_flank,
+                                                         flank_state.rhs_flank)
+                hap_keys = [(haplotype_begin, len(h),
+                             zlib.crc32(h.tobytes()), fk, pad) for h in haplotypes]
+            self._pooled_cap_trig = None
+            if cfg.shared_read_profile and cfg.use_mapping_quality:
+                self._pooled_cap_trig = self._derive_cap_and_trigger(
+                    np.concatenate([b.mapq for b in reads_by_sample])
+                    if any(len(b) for b in reads_by_sample) else np.zeros(0),
+                    np.concatenate([b.lengths() for b in reads_by_sample])
+                    if any(len(b) for b in reads_by_sample) else np.zeros(0))
         self.likelihoods = []
         for batch in reads_by_sample:
             self.likelihoods.append(
@@ -309,95 +323,96 @@ class HaplotypeLikelihoodArray:
         out = np.full((H, n_reads), -np.inf, dtype=np.float64)
         if n_reads == 0:
             return np.zeros((H, 0), dtype=np.float64)
-        hashes_flat, hash_offsets = read_kmer_hashes(batch.seq, batch.seq_offsets)
-        lens = batch.lengths()
-        original = np.maximum(batch.begins - hap_begin, 0)
-        is_rev = batch.is_reverse()
+        with timers.phase("populate_jobs"):
+            hashes_flat, hash_offsets = read_kmer_hashes(batch.seq, batch.seq_offsets)
+            lens = batch.lengths()
+            original = np.maximum(batch.begins - hap_begin, 0)
+            is_rev = batch.is_reverse()
 
-        read_keys = None
-        cached_pairs = None
-        if cache is not None:
-            read_keys = [
-                (int(batch.begins[r]), int(lens[r]), int(batch.mapq[r]),
-                 int(batch.flags[r]),
-                 zlib.crc32(batch.sequence(r).tobytes(),
-                            zlib.crc32(batch.qualities(r).tobytes())))
-                for r in range(n_reads)
-            ]
-            cached_pairs = set()
+            read_keys = None
+            cached_pairs = None
+            if cache is not None:
+                read_keys = [
+                    (int(batch.begins[r]), int(lens[r]), int(batch.mapq[r]),
+                     int(batch.flags[r]),
+                     zlib.crc32(batch.sequence(r).tobytes(),
+                                zlib.crc32(batch.qualities(r).tobytes())))
+                    for r in range(n_reads)
+                ]
+                cached_pairs = set()
 
-        # gather candidate jobs: (hap, read, position) — loop-free per
-        # haplotype (the per-pair python loop was the top host cost at
-        # whole-genome scale)
-        jh_parts: list[np.ndarray] = []
-        jr_parts: list[np.ndarray] = []
-        jp_parts: list[np.ndarray] = []
-        all_reads = np.arange(n_reads)
-        for h in range(H):
-            hap_len = len(haplotypes[h])
-            # need[r] = read r still needs scoring against h (no cache hit)
-            need = np.ones(n_reads, bool)
-            if cache is not None:
-                hk = hap_keys[h]
-                for r in range(n_reads):
-                    hit = cache.get((hk, read_keys[r]))
-                    if hit is not None:
-                        out[h, r] = hit
-                        cached_pairs.add((h, r))
-                        need[r] = False
-                if not need.any():
-                    # fully cached haplotype (beam prune rounds re-score
-                    # survivors every round): skip anchor mapping and job
-                    # assembly outright — the dominant host cost on deep
-                    # dense windows
-                    continue
-            read_of, begin = indices[h].map_reads_flat(hashes_flat,
-                                                       hash_offsets)
-            # ensure each read's original mapped position is a candidate
-            M = max(hap_len, int(original.max()) + 1 if n_reads else 1) + 2
-            have_orig = np.isin(all_reads * M + original,
-                                read_of * M + begin)
-            missing = np.flatnonzero(~have_orig)
-            if len(missing):
-                read_of = np.concatenate([read_of, missing])
-                begin = np.concatenate([begin, original[missing]])
-            if cache is not None:
-                sel = need[read_of]
-                read_of, begin = read_of[sel], begin[sel]
-            # the band needs pad bases of LEFT window slack; the RIGHT side
-            # may overrun the haplotype end — _device_scores neutral-fills
-            # overflow cells (N bases, stiff gaps), so a read ending at the
-            # haplotype (= contig) end still scores its true alignment
-            # instead of being anchor-shifted out of band (which floored
-            # every read at the mismap cap)
-            ok = (begin >= pad) & (begin + lens[read_of] <= hap_len)
-            # reads needing scoring with zero in-range candidates: shift the
-            # original position minimally into range
-            cnt_ok = np.bincount(read_of[ok], minlength=n_reads)
-            none_r = np.flatnonzero(need & (cnt_ok == 0))
-            read_of, begin = read_of[ok], begin[ok]
-            if len(none_r):
-                pos = np.maximum(original[none_r], pad)
-                over = pos + lens[none_r] - hap_len
-                pos = np.where(over > 0, pos - over, pos)
-                bad = (pos < pad) | (pos + lens[none_r] > hap_len)
-                if bad.any():
-                    r = int(none_r[np.argmax(bad)])
-                    raise ShortHaplotypeError(
-                        f"haplotype {h} too short for read {r} "
-                        f"(len {lens[r]}, hap {hap_len})"
-                    )
-                read_of = np.concatenate([read_of, none_r])
-                begin = np.concatenate([begin, pos])
-            jh_parts.append(np.full(len(read_of), h, np.int64))
-            jr_parts.append(read_of.astype(np.int64))
-            jp_parts.append(begin.astype(np.int64))
-        job_hap = (np.concatenate(jh_parts) if jh_parts
-                   else np.zeros(0, np.int64))
-        job_read = (np.concatenate(jr_parts) if jr_parts
-                    else np.zeros(0, np.int64))
-        job_pos = (np.concatenate(jp_parts) if jp_parts
-                   else np.zeros(0, np.int64))
+            # gather candidate jobs: (hap, read, position) — loop-free per
+            # haplotype (the per-pair python loop was the top host cost at
+            # whole-genome scale)
+            jh_parts: list[np.ndarray] = []
+            jr_parts: list[np.ndarray] = []
+            jp_parts: list[np.ndarray] = []
+            all_reads = np.arange(n_reads)
+            for h in range(H):
+                hap_len = len(haplotypes[h])
+                # need[r] = read r still needs scoring against h (no cache hit)
+                need = np.ones(n_reads, bool)
+                if cache is not None:
+                    hk = hap_keys[h]
+                    for r in range(n_reads):
+                        hit = cache.get((hk, read_keys[r]))
+                        if hit is not None:
+                            out[h, r] = hit
+                            cached_pairs.add((h, r))
+                            need[r] = False
+                    if not need.any():
+                        # fully cached haplotype (beam prune rounds re-score
+                        # survivors every round): skip anchor mapping and job
+                        # assembly outright — the dominant host cost on deep
+                        # dense windows
+                        continue
+                read_of, begin = indices[h].map_reads_flat(hashes_flat,
+                                                           hash_offsets)
+                # ensure each read's original mapped position is a candidate
+                M = max(hap_len, int(original.max()) + 1 if n_reads else 1) + 2
+                have_orig = np.isin(all_reads * M + original,
+                                    read_of * M + begin)
+                missing = np.flatnonzero(~have_orig)
+                if len(missing):
+                    read_of = np.concatenate([read_of, missing])
+                    begin = np.concatenate([begin, original[missing]])
+                if cache is not None:
+                    sel = need[read_of]
+                    read_of, begin = read_of[sel], begin[sel]
+                # the band needs pad bases of LEFT window slack; the RIGHT side
+                # may overrun the haplotype end — _device_scores neutral-fills
+                # overflow cells (N bases, stiff gaps), so a read ending at the
+                # haplotype (= contig) end still scores its true alignment
+                # instead of being anchor-shifted out of band (which floored
+                # every read at the mismap cap)
+                ok = (begin >= pad) & (begin + lens[read_of] <= hap_len)
+                # reads needing scoring with zero in-range candidates: shift the
+                # original position minimally into range
+                cnt_ok = np.bincount(read_of[ok], minlength=n_reads)
+                none_r = np.flatnonzero(need & (cnt_ok == 0))
+                read_of, begin = read_of[ok], begin[ok]
+                if len(none_r):
+                    pos = np.maximum(original[none_r], pad)
+                    over = pos + lens[none_r] - hap_len
+                    pos = np.where(over > 0, pos - over, pos)
+                    bad = (pos < pad) | (pos + lens[none_r] > hap_len)
+                    if bad.any():
+                        r = int(none_r[np.argmax(bad)])
+                        raise ShortHaplotypeError(
+                            f"haplotype {h} too short for read {r} "
+                            f"(len {lens[r]}, hap {hap_len})"
+                        )
+                    read_of = np.concatenate([read_of, none_r])
+                    begin = np.concatenate([begin, pos])
+                jh_parts.append(np.full(len(read_of), h, np.int64))
+                jr_parts.append(read_of.astype(np.int64))
+                jp_parts.append(begin.astype(np.int64))
+            job_hap = (np.concatenate(jh_parts) if jh_parts
+                       else np.zeros(0, np.int64))
+            job_read = (np.concatenate(jr_parts) if jr_parts
+                        else np.zeros(0, np.int64))
+            job_pos = (np.concatenate(jp_parts) if jp_parts
+                       else np.zeros(0, np.int64))
 
         # evaluate all jobs grouped by read-length bucket (lengths padded up
         # to the bucket size with PAD_CODE/qual-0, which is score-exact)
@@ -474,6 +489,25 @@ class HaplotypeLikelihoodArray:
                              job_hap, job_read, job_pos, job_lens,
                              flank_state, pad, is_rev):
         """ln-likelihood for jobs whose reads all fit in length bucket L."""
+        with timers.phase("populate_shortcut"):
+            tgt, quals, ln, done = self._shortcut_scores(
+                batch, haplotypes, penalties, L, job_hap, job_read, job_pos,
+                job_lens, flank_state, is_rev)
+        rest = np.flatnonzero(~done)
+        ROUTING.record_shortcuts(len(done) - len(rest))
+        if len(rest):
+            ln[rest] = self._device_scores(batch, haplotypes, penalties, L,
+                                           job_hap[rest], job_read[rest],
+                                           job_pos[rest], job_lens[rest],
+                                           flank_state, pad,
+                                           is_rev, tgt[rest], quals[rest])
+        return ln
+
+    def _shortcut_scores(self, batch, haplotypes, penalties, L, job_hap,
+                         job_read, job_pos, job_lens, flank_state, is_rev):
+        """The jobs' read matrices padded to L (tgt, quals), and the
+        ln-likelihoods of the jobs the naive shortcuts resolve (ln, where
+        done)."""
         n = len(job_hap)
         cfg = self.config
         # read matrices padded to the bucket length
@@ -548,60 +582,52 @@ class HaplotypeLikelihoodArray:
             pen = np.where(in_flank, 0, pen)
             done[rows[ok]] = True
             ln[rows[ok]] = -LN10_DIV_10 * pen[ok]
-
-        # ---- device HMM for the rest -------------------------------------
-        rest = np.flatnonzero(~done)
-        if len(rest):
-            ln[rest] = self._device_scores(batch, haplotypes, penalties, L,
-                                           job_hap[rest], job_read[rest],
-                                           job_pos[rest], job_lens[rest],
-                                           flank_state, pad,
-                                           is_rev, tgt[rest], quals[rest])
-        return ln
+        return tgt, quals, ln, done
 
     def _device_scores(self, batch, haplotypes, penalties, L, job_hap,
                        job_read, job_pos, job_lens, flank_state, pad, is_rev,
                        tgt, quals):
-        cfg = self.config
-        n = len(job_hap)
-        W = L + 2 * pad - 1
-        offset = np.maximum(job_pos - pad, 0)
-        win = np.zeros((n, W), np.int32)
-        opn = np.zeros((n, W), np.int32)
-        ext = np.zeros((n, W), np.int32)
-        mask = np.full((n, W), PAD_CODE, np.int32)
-        prior = np.zeros((n, W), np.int32)
-        wcol = np.arange(W)
-        flank_rows: list[int] = []
-        rev_of_job = is_rev[job_read]
-        # the host DP discounts the band's columns past the haplotype end as
-        # flank, with FlankState(0, 0) when there is no flank state; the
-        # device scorer's rows get the same correction, so that no score
-        # depends on where its job set ran
-        flank = flank_state or FlankState(0, 0)
-        for h in np.unique(job_hap):
-            p = penalties[h]
-            hl = len(p.codes)
-            hsel = np.flatnonzero(job_hap == h)
-            idx = offset[hsel][:, None] + wcol[None, :]
-            over = idx >= hl
-            idx = np.minimum(idx, hl - 1)
-            # window may run past the haplotype end because of length-bucket
-            # padding; overflow cells are unreachable by real-read rows and
-            # get neutral fill (N bases, stiff gap penalties)
-            win[hsel] = np.where(over, 4, p.codes[idx])
-            opn[hsel] = np.where(over, 64, p.gap_open[idx])
-            ext[hsel] = np.where(over, 64, p.gap_extend[idx])
-            if p.snv_mask_fwd is not None:
-                rev = rev_of_job[hsel]
-                m = np.where(rev[:, None], p.snv_mask_rev[idx], p.snv_mask_fwd[idx])
-                pr = np.where(rev[:, None], p.snv_prior_rev[idx], p.snv_prior_fwd[idx])
-                mask[hsel] = np.where(over, PAD_CODE, m)
-                prior[hsel] = np.where(over, 0, pr)
-            in_flank = ((job_pos[hsel] < flank.lhs_flank + pad)
-                        | (job_pos[hsel] + job_lens[hsel] + pad
-                           > hl - flank.rhs_flank))
-            flank_rows.extend(int(k) for k in hsel[in_flank])
+        with timers.phase("populate_stage"):
+            cfg = self.config
+            n = len(job_hap)
+            W = L + 2 * pad - 1
+            offset = np.maximum(job_pos - pad, 0)
+            win = np.zeros((n, W), np.int32)
+            opn = np.zeros((n, W), np.int32)
+            ext = np.zeros((n, W), np.int32)
+            mask = np.full((n, W), PAD_CODE, np.int32)
+            prior = np.zeros((n, W), np.int32)
+            wcol = np.arange(W)
+            flank_rows: list[int] = []
+            rev_of_job = is_rev[job_read]
+            # the host DP discounts the band's columns past the haplotype end as
+            # flank, with FlankState(0, 0) when there is no flank state; the
+            # device scorer's rows get the same correction, so that no score
+            # depends on where its job set ran
+            flank = flank_state or FlankState(0, 0)
+            for h in np.unique(job_hap):
+                p = penalties[h]
+                hl = len(p.codes)
+                hsel = np.flatnonzero(job_hap == h)
+                idx = offset[hsel][:, None] + wcol[None, :]
+                over = idx >= hl
+                idx = np.minimum(idx, hl - 1)
+                # window may run past the haplotype end because of length-bucket
+                # padding; overflow cells are unreachable by real-read rows and
+                # get neutral fill (N bases, stiff gap penalties)
+                win[hsel] = np.where(over, 4, p.codes[idx])
+                opn[hsel] = np.where(over, 64, p.gap_open[idx])
+                ext[hsel] = np.where(over, 64, p.gap_extend[idx])
+                if p.snv_mask_fwd is not None:
+                    rev = rev_of_job[hsel]
+                    m = np.where(rev[:, None], p.snv_mask_rev[idx], p.snv_mask_fwd[idx])
+                    pr = np.where(rev[:, None], p.snv_prior_rev[idx], p.snv_prior_fwd[idx])
+                    mask[hsel] = np.where(over, PAD_CODE, m)
+                    prior[hsel] = np.where(over, 0, pr)
+                in_flank = ((job_pos[hsel] < flank.lhs_flank + pad)
+                            | (job_pos[hsel] + job_lens[hsel] + pad
+                               > hl - flank.rhs_flank))
+                flank_rows.extend(int(k) for k in hsel[in_flank])
 
         # small job sets run the native host DP instead of paying a device
         # round trip (launch latency >> the few thousand DP cells; the
@@ -633,32 +659,33 @@ class HaplotypeLikelihoodArray:
         # (simd_pair_hmm.hpp:352-430). Batched through the native extension;
         # per-read python golden path as fallback.
         if flank_rows:
-            rows = np.asarray(flank_rows, np.int64)
-            corrected = self._flank_corrected_scores(
-                rows, penalties, job_hap, job_read, job_pos, job_lens,
-                flank, pad, is_rev, tgt_i, qual_i,
-                win, opn, ext, mask, prior, L, W)
-            if corrected is not None:
-                ln[rows] = -LN10_DIV_10 * corrected.astype(np.float64)
-            else:
-                for k in flank_rows:
-                    h = job_hap[k]
-                    p = penalties[h]
-                    rev = is_rev[job_read[k]]
-                    params = ph.HmmParams(
-                        gap_open=p.gap_open, gap_extend=p.gap_extend,
-                        snv_mask=(p.snv_mask_rev if rev else p.snv_mask_fwd),
-                        snv_prior=(p.snv_prior_rev if rev else p.snv_prior_fwd),
-                        nuc_prior=cfg.nuc_prior,
-                        lhs_flank=flank.lhs_flank,
-                        rhs_flank=flank.rhs_flank,
-                    )
-                    rl = int(job_lens[k])
-                    ln[k] = ph.hmm_evaluate(
-                        p.codes, tgt[k, :rl].astype(np.uint8),
-                        quals[k, :rl].astype(np.uint8),
-                        int(job_pos[k]), params, pad=pad,
-                    )
+            with timers.phase("populate_flank"):
+                rows = np.asarray(flank_rows, np.int64)
+                corrected = self._flank_corrected_scores(
+                    rows, penalties, job_hap, job_read, job_pos, job_lens,
+                    flank, pad, is_rev, tgt_i, qual_i,
+                    win, opn, ext, mask, prior, L, W)
+                if corrected is not None:
+                    ln[rows] = -LN10_DIV_10 * corrected.astype(np.float64)
+                else:
+                    for k in flank_rows:
+                        h = job_hap[k]
+                        p = penalties[h]
+                        rev = is_rev[job_read[k]]
+                        params = ph.HmmParams(
+                            gap_open=p.gap_open, gap_extend=p.gap_extend,
+                            snv_mask=(p.snv_mask_rev if rev else p.snv_mask_fwd),
+                            snv_prior=(p.snv_prior_rev if rev else p.snv_prior_fwd),
+                            nuc_prior=cfg.nuc_prior,
+                            lhs_flank=flank.lhs_flank,
+                            rhs_flank=flank.rhs_flank,
+                        )
+                        rl = int(job_lens[k])
+                        ln[k] = ph.hmm_evaluate(
+                            p.codes, tgt[k, :rl].astype(np.uint8),
+                            quals[k, :rl].astype(np.uint8),
+                            int(job_pos[k]), params, pad=pad,
+                        )
         return ln
 
     def _flank_corrected_scores(self, rows, penalties, job_hap, job_read,
@@ -716,74 +743,75 @@ def populate_assignment_blocks(jobs, config: LikelihoodConfig | None = None
         else:
             by_pad.setdefault(int(pad), []).append(idx)
     for pad, group in by_pad.items():
-        merged = ReadBatch.concatenate([jobs[i][0] for i in group])
-        read_counts = np.asarray([len(jobs[i][0]) for i in group], np.int64)
-        read_base = np.zeros(len(group) + 1, np.int64)
-        np.cumsum(read_counts, out=read_base[1:])
-        haps_g: list = []
-        pens: list = []
-        kidx: list = []
-        hap_of_job: list[list[int]] = []
-        for gi, i in enumerate(group):
-            ids = []
-            for codes, mask in zip(jobs[i][1], jobs[i][2]):
-                ids.append(len(haps_g))
-                haps_g.append(codes)
-                pens.append(arr._haplotype_penalties(codes, mask))
-                kidx.append(arr._kmer_index(codes))
-            hap_of_job.append(ids)
-        hashes_flat, hash_offsets = read_kmer_hashes(merged.seq,
-                                                     merged.seq_offsets)
-        lens = merged.lengths()
-        job_of_read = np.repeat(np.arange(len(group)), read_counts)
-        hb = np.asarray([jobs[i][3] for i in group], np.int64)
-        original = np.maximum(merged.begins - hb[job_of_read], 0)
-        is_rev = merged.is_reverse()
-        jh_parts, jr_parts, jp_parts = [], [], []
-        for gi, i in enumerate(group):
-            r0, r1 = int(read_base[gi]), int(read_base[gi + 1])
-            ho = hash_offsets[r0:r1 + 1]
-            local_hashes = hashes_flat[ho[0]:ho[-1]]
-            local_offsets = ho - ho[0]
-            local_orig = original[r0:r1]
-            local_lens = lens[r0:r1]
-            nr = r1 - r0
-            loc_reads = np.arange(nr)
-            for hg in hap_of_job[gi]:
-                hap_len = len(haps_g[hg])
-                read_of, begin = kidx[hg].map_reads_flat(local_hashes,
-                                                         local_offsets)
-                M = max(hap_len, int(local_orig.max()) + 1) + 2
-                have = np.isin(loc_reads * M + local_orig,
-                               read_of * M + begin)
-                missing = np.flatnonzero(~have)
-                if len(missing):
-                    read_of = np.concatenate([read_of, missing])
-                    begin = np.concatenate([begin, local_orig[missing]])
-                ok = (begin >= pad) & (begin + local_lens[read_of] <= hap_len)
-                cnt_ok = np.bincount(read_of[ok], minlength=nr)
-                none_r = np.flatnonzero(cnt_ok == 0)
-                read_of, begin = read_of[ok], begin[ok]
-                if len(none_r):
-                    pos = np.maximum(local_orig[none_r], pad)
-                    over = pos + local_lens[none_r] - hap_len
-                    pos = np.where(over > 0, pos - over, pos)
-                    bad = (pos < pad) | (pos + local_lens[none_r] > hap_len)
-                    if bad.any():
-                        raise ShortHaplotypeError(
-                            f"assignment-block haplotype too short "
-                            f"(hap {hap_len}, job {i})")
-                    read_of = np.concatenate([read_of, none_r])
-                    begin = np.concatenate([begin, pos])
-                jh_parts.append(np.full(len(read_of), hg, np.int64))
-                jr_parts.append(read_of.astype(np.int64) + r0)
-                jp_parts.append(begin.astype(np.int64))
-        job_hap = (np.concatenate(jh_parts) if jh_parts
-                   else np.zeros(0, np.int64))
-        job_read = (np.concatenate(jr_parts) if jr_parts
-                    else np.zeros(0, np.int64))
-        job_pos = (np.concatenate(jp_parts) if jp_parts
-                   else np.zeros(0, np.int64))
+        with timers.phase("populate_jobs"):
+            merged = ReadBatch.concatenate([jobs[i][0] for i in group])
+            read_counts = np.asarray([len(jobs[i][0]) for i in group], np.int64)
+            read_base = np.zeros(len(group) + 1, np.int64)
+            np.cumsum(read_counts, out=read_base[1:])
+            haps_g: list = []
+            pens: list = []
+            kidx: list = []
+            hap_of_job: list[list[int]] = []
+            for gi, i in enumerate(group):
+                ids = []
+                for codes, mask in zip(jobs[i][1], jobs[i][2]):
+                    ids.append(len(haps_g))
+                    haps_g.append(codes)
+                    pens.append(arr._haplotype_penalties(codes, mask))
+                    kidx.append(arr._kmer_index(codes))
+                hap_of_job.append(ids)
+            hashes_flat, hash_offsets = read_kmer_hashes(merged.seq,
+                                                         merged.seq_offsets)
+            lens = merged.lengths()
+            job_of_read = np.repeat(np.arange(len(group)), read_counts)
+            hb = np.asarray([jobs[i][3] for i in group], np.int64)
+            original = np.maximum(merged.begins - hb[job_of_read], 0)
+            is_rev = merged.is_reverse()
+            jh_parts, jr_parts, jp_parts = [], [], []
+            for gi, i in enumerate(group):
+                r0, r1 = int(read_base[gi]), int(read_base[gi + 1])
+                ho = hash_offsets[r0:r1 + 1]
+                local_hashes = hashes_flat[ho[0]:ho[-1]]
+                local_offsets = ho - ho[0]
+                local_orig = original[r0:r1]
+                local_lens = lens[r0:r1]
+                nr = r1 - r0
+                loc_reads = np.arange(nr)
+                for hg in hap_of_job[gi]:
+                    hap_len = len(haps_g[hg])
+                    read_of, begin = kidx[hg].map_reads_flat(local_hashes,
+                                                             local_offsets)
+                    M = max(hap_len, int(local_orig.max()) + 1) + 2
+                    have = np.isin(loc_reads * M + local_orig,
+                                   read_of * M + begin)
+                    missing = np.flatnonzero(~have)
+                    if len(missing):
+                        read_of = np.concatenate([read_of, missing])
+                        begin = np.concatenate([begin, local_orig[missing]])
+                    ok = (begin >= pad) & (begin + local_lens[read_of] <= hap_len)
+                    cnt_ok = np.bincount(read_of[ok], minlength=nr)
+                    none_r = np.flatnonzero(cnt_ok == 0)
+                    read_of, begin = read_of[ok], begin[ok]
+                    if len(none_r):
+                        pos = np.maximum(local_orig[none_r], pad)
+                        over = pos + local_lens[none_r] - hap_len
+                        pos = np.where(over > 0, pos - over, pos)
+                        bad = (pos < pad) | (pos + local_lens[none_r] > hap_len)
+                        if bad.any():
+                            raise ShortHaplotypeError(
+                                f"assignment-block haplotype too short "
+                                f"(hap {hap_len}, job {i})")
+                        read_of = np.concatenate([read_of, none_r])
+                        begin = np.concatenate([begin, pos])
+                    jh_parts.append(np.full(len(read_of), hg, np.int64))
+                    jr_parts.append(read_of.astype(np.int64) + r0)
+                    jp_parts.append(begin.astype(np.int64))
+            job_hap = (np.concatenate(jh_parts) if jh_parts
+                       else np.zeros(0, np.int64))
+            job_read = (np.concatenate(jr_parts) if jr_parts
+                        else np.zeros(0, np.int64))
+            job_pos = (np.concatenate(jp_parts) if jp_parts
+                       else np.zeros(0, np.int64))
         job_ln = np.full(len(job_hap), -np.inf, np.float64)
         job_lens = lens[job_read]
         bucket = cfg.length_bucket

@@ -27,7 +27,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .subclone_vb import e_ln_weights, vb_route
+from ...utils import timers
+from .subclone_vb import e_ln_weights, evaluation_phase, host_arrays, vb_route
 from .vb_math import flgamma, flog, fsoftmax, fsum
 
 _NEG = -1e30
@@ -149,20 +150,22 @@ class VariationalBayesMixtureMixtureModel:
             taus.append(rng.dirichlet(np.ones(C), size=N).astype(np.float32))
         beta0 = np.full(C, self.beta0 / C, np.float32)
         dev = vb_route(self.device, self.n_seeds * N * C * M * R)
-        elbos, tau_all, alpha_all, _ = vb_mixture_mixture(
-            torch.as_tensor(lnl, device=dev),
-            torch.as_tensor(member_mask, device=dev),
-            torch.as_tensor(read_mask, device=dev), float(self.alpha0),
-            torch.as_tensor(beta0, device=dev),
-            torch.as_tensor(np.stack(taus), device=dev), n_iter=self.n_iter)
-        elbos = elbos.double().cpu().numpy()
+        with timers.phase(evaluation_phase(dev)):
+            elbos, tau_all, alpha_all, _ = vb_mixture_mixture(
+                torch.as_tensor(lnl, device=dev),
+                torch.as_tensor(member_mask, device=dev),
+                torch.as_tensor(read_mask, device=dev), float(self.alpha0),
+                torch.as_tensor(beta0, device=dev),
+                torch.as_tensor(np.stack(taus), device=dev), n_iter=self.n_iter)
+            elbos, tau_all, alpha_all = host_arrays(dev, elbos.double(),
+                                                    tau_all, alpha_all)
         best = int(np.argmax(elbos))
-        tau = tau_all[best].cpu().numpy()
+        tau = tau_all[best]
         return MixtureMixtureInference(
             log_evidence=float(elbos[best]),
             cell_responsibilities=tau,
             map_assignments=np.argmax(tau, axis=1),
-            alphas=alpha_all[best].cpu().numpy(),
+            alphas=alpha_all[best],
         )
 
 

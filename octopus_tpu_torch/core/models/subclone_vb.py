@@ -22,7 +22,9 @@ counts real elements G*S*K*N (or S*N*C*M*R for the mixture-mixture model)
 and sends those below it to the host. Its default comes from
 chip_smoke.py's vb_gate_sweep on an H100; OCTOPUS_TPU_VB_DEVICE_MIN
 overrides it when set, and 0 sends every evaluation to the device. COUNTS
-holds evaluations and elements on each side.
+holds evaluations and elements on each side, and the graphs captured.
+An evaluation is timed as the vb_host or vb_card phase; on a card its
+graph capture (vb_capture) and the copies back (vb_card_wait) nest in it.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import numpy as np
 import torch
 
 from ...device import resolve_device
+from ...utils import timers
 from .individual import logsumexp
 from .vb_math import fdigamma, fdot, flgamma, flog, fsoftmax, fsum, fsum_xla
 
@@ -51,15 +54,17 @@ VB_BUDGET_ELEMS = 64_000_000
 
 @dataclass
 class VbCounts:
-    """VB evaluations and their elements, on the host and on the device."""
+    """VB evaluations and their elements, on the host and on the device,
+    and the CUDA graphs the device's evaluations captured."""
 
     host: int = 0
     device: int = 0
     host_elements: int = 0
     device_elements: int = 0
+    captures: int = 0
 
     def reset(self) -> None:
-        self.host = self.device = 0
+        self.host = self.device = self.captures = 0
         self.host_elements = self.device_elements = 0
 
 
@@ -85,6 +90,20 @@ def vb_route(device: str | torch.device, elements: int) -> torch.device:
         COUNTS.host += 1
         COUNTS.host_elements += elements
     return dev
+
+
+def evaluation_phase(dev: torch.device) -> str:
+    """The timers phase of an evaluation routed to `dev`."""
+    return "vb_card" if dev.type == "cuda" else "vb_host"
+
+
+def host_arrays(dev: torch.device, *tensors) -> list:
+    """`tensors` as NumPy arrays. On a card the first copy waits for the
+    evaluation to finish, timed as the vb_card_wait phase."""
+    if dev.type != "cuda":
+        return [t.cpu().numpy() for t in tensors]
+    with timers.phase("vb_card_wait"):
+        return [t.cpu().numpy() for t in tensors]
 
 
 def e_ln_weights(conc: torch.Tensor) -> torch.Tensor:
@@ -121,14 +140,16 @@ def vb_subclone(lnl: torch.Tensor, alpha0: torch.Tensor,
         # captured on a side stream without torch.cuda.graph's synchronize,
         # gc.collect and empty_cache, which would cost more than the launches
         alpha = alpha.clone()
-        graph = torch.cuda.CUDAGraph()
-        side = torch.cuda.Stream(lnl.device)
-        side.wait_stream(torch.cuda.current_stream(lnl.device))
-        with torch.cuda.stream(side):
-            graph.capture_begin(capture_error_mode="thread_local")
-            new_alpha, resp = step(alpha)
-            alpha.copy_(new_alpha)
-            graph.capture_end()
+        with timers.phase("vb_capture"):
+            graph = torch.cuda.CUDAGraph()
+            side = torch.cuda.Stream(lnl.device)
+            side.wait_stream(torch.cuda.current_stream(lnl.device))
+            with torch.cuda.stream(side):
+                graph.capture_begin(capture_error_mode="thread_local")
+                new_alpha, resp = step(alpha)
+                alpha.copy_(new_alpha)
+                graph.capture_end()
+        COUNTS.captures += 1
         torch.cuda.current_stream(lnl.device).wait_stream(side)
         for _ in range(n_iter - eager):
             graph.replay()
@@ -211,33 +232,36 @@ class SubcloneModel:
         if alpha0_vec is None:
             alpha0_vec = np.full(K, self.alpha0, np.float32)
         dev = vb_route(self.device, G * S * K * N)
-        budget = int(os.environ.get("OCTOPUS_TPU_VB_BUDGET_ELEMS",
-                                    VB_BUDGET_ELEMS))
-        # genotype rows are independent: chunk them so the (Gc, S, K, N)
-        # intermediates stay within the budget
-        gchunk = max(1, budget // max(S * K * N, 1))
-        lnl32 = np.asarray(lnL, np.float32)
-        seeds = torch.tensor(subclone_seeds(K, N, S), device=dev)
-        a0 = torch.as_tensor(np.asarray(alpha0_vec, np.float32), device=dev)
-        elbo_parts, alpha_parts = [], []
-        for lo in range(0, G, gchunk):
-            # gather on the host: one (Gc, K, N) copy to the device
-            lnl_gkn = torch.as_tensor(lnl32[tuples[lo:lo + gchunk]], device=dev)
-            e, al, _ = vb_subclone(lnl_gkn, a0, seeds, n_iter=self.n_iter)
-            elbo_parts.append(e.double().cpu().numpy())
-            alpha_parts.append(al.cpu().numpy())
-        elbos = np.concatenate(elbo_parts)
-        alphas = np.concatenate(alpha_parts)
-        best_seed = np.argmax(elbos, axis=1)
-        gle = elbos[np.arange(G), best_seed]
-        map_alphas = alphas[np.arange(G), best_seed]
-        if log_priors is None and self.prior_model is not None:
-            log_priors = self.prior_model.evaluate_many(tuples)
-        if log_priors is None:
-            log_priors = np.zeros(G)
-        joint = gle + log_priors
-        log_evidence = logsumexp(joint)
-        post = np.exp(joint - log_evidence)
+        with timers.phase(evaluation_phase(dev)):
+            budget = int(os.environ.get("OCTOPUS_TPU_VB_BUDGET_ELEMS",
+                                        VB_BUDGET_ELEMS))
+            # genotype rows are independent: chunk them so the (Gc, S, K, N)
+            # intermediates stay within the budget
+            gchunk = max(1, budget // max(S * K * N, 1))
+            lnl32 = np.asarray(lnL, np.float32)
+            seeds = torch.tensor(subclone_seeds(K, N, S), device=dev)
+            a0 = torch.as_tensor(np.asarray(alpha0_vec, np.float32), device=dev)
+            elbo_parts, alpha_parts = [], []
+            for lo in range(0, G, gchunk):
+                # gather on the host: one (Gc, K, N) copy to the device
+                lnl_gkn = torch.as_tensor(lnl32[tuples[lo:lo + gchunk]],
+                                          device=dev)
+                e, al, _ = vb_subclone(lnl_gkn, a0, seeds, n_iter=self.n_iter)
+                e, al = host_arrays(dev, e.double(), al)
+                elbo_parts.append(e)
+                alpha_parts.append(al)
+            elbos = np.concatenate(elbo_parts)
+            alphas = np.concatenate(alpha_parts)
+            best_seed = np.argmax(elbos, axis=1)
+            gle = elbos[np.arange(G), best_seed]
+            map_alphas = alphas[np.arange(G), best_seed]
+            if log_priors is None and self.prior_model is not None:
+                log_priors = self.prior_model.evaluate_many(tuples)
+            if log_priors is None:
+                log_priors = np.zeros(G)
+            joint = gle + log_priors
+            log_evidence = logsumexp(joint)
+            post = np.exp(joint - log_evidence)
         return SubcloneInference(
             genotype_log_evidences=gle,
             genotype_posteriors=post,
@@ -247,4 +271,5 @@ class SubcloneModel:
 
 
 __all__ = ["SubcloneModel", "SubcloneInference", "vb_subclone",
-           "subclone_seeds", "vb_route", "COUNTS", "VB_DEVICE_MIN"]
+           "subclone_seeds", "vb_route", "evaluation_phase", "host_arrays",
+           "COUNTS", "VB_DEVICE_MIN"]

@@ -383,9 +383,16 @@ def _run_calling(args) -> int:
         activities = [ProfilerActivity.CPU]
         if torch.cuda.is_available():
             activities.append(ProfilerActivity.CUDA)
+        from .utils import timers
         profile_dir, args.profile = args.profile, None
-        with profile(activities=activities) as prof:
-            code = _run_calling(args)
+        # each timers.phase opens a record_function range, so the trace
+        # shows the host phases beside the kernels on the profiler's clock
+        timers.annotate = True
+        try:
+            with profile(activities=activities) as prof:
+                code = _run_calling(args)
+        finally:
+            timers.annotate = False
         os.makedirs(profile_dir, exist_ok=True)
         trace = os.path.join(profile_dir, "trace.json")
         prof.export_chrome_trace(trace)
@@ -636,7 +643,7 @@ def _process_worker_run(task):
     st = _WORKER_STATE
     window = Window(contig, begin, end)
     from .utils import timers
-    before = dict(timers._totals)
+    timers.reset()
     from .core.callers.base import HeavyWindowDeferred
     try:
         records = _call_window(window, st["reference"], st["bams"],
@@ -652,12 +659,9 @@ def _process_worker_run(task):
     with VcfWriter(shard_path, st["header"]) as w:
         for r in records:
             w.write(r)
-    # per-window phase-timer delta: the parent aggregates these so
-    # --benchmark shows the whole pool's phase breakdown, not just the
-    # parent process's
-    delta = {k: round(v - before.get(k, 0.0), 4)
-             for k, v in timers._totals.items()
-             if v - before.get(k, 0.0) > 0} if timers.enabled else {}
+    # the window's phase timers: the parent merges these so --benchmark
+    # shows the whole pool's phase breakdown, not just the parent process's
+    delta = timers.snapshot() if timers.enabled else {}
     return key, shard_path, delta
 
 
@@ -913,9 +917,7 @@ def _run_process_pool(args, pending, shard_dir, n_workers, run_one, finish):
             return
         POOL.worker_windows += 1
         finish(window_of[key], shard_path)
-        for tk, tv in tdelta.items():
-            timers._totals[tk] += tv
-            timers._counts[tk] += 1
+        timers.merge(tdelta)
 
     # spawned workers inherit the environment they start in: no visible card
     saved = os.environ.get("CUDA_VISIBLE_DEVICES")

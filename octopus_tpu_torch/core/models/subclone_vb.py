@@ -8,10 +8,13 @@ infers read responsibilities (N x K) and Dirichlet weight posteriors, with
 multi-seed restarts combined by evidence.
 
 Design: one batched coordinate ascent over (genotype, seed, component,
-read) tensors, G x S x K x N, on the caller's device; the loop over
-iterations runs in Python, so an evaluation is n_iter rounds of elementwise
-ops, a softmax over K and a sum over N (on a card, a CUDA graph of one round
-replayed). Its arithmetic is vb_math's, which
+read) tensors, G x S x K x N, on the caller's device. On a card the loop
+over iterations runs in Python (vb_subclone_ops): n_iter rounds of
+elementwise ops, a softmax over K and a sum over N, a CUDA graph of one
+round replayed. On the CPU one call of csrc/vb_host.cpp's vb_subclone_host
+runs the whole evaluation, rounds and ELBO, the same operations in the same
+order (vb_subclone_ops is its fallback where g++ is missing; COUNTS counts
+the native calls). Its arithmetic is vb_math's, which
 gives the same bits on the CPU and on a card. Reads are not padded: the
 seeds are drawn at the padded read count the reference package uses (the
 ladder 32 * 4^k) and cut to the real reads, so every seed, and every
@@ -22,7 +25,8 @@ counts real elements G*S*K*N (or S*N*C*M*R for the mixture-mixture model)
 and sends those below it to the host. Its default comes from
 chip_smoke.py's vb_gate_sweep on an H100; OCTOPUS_TPU_VB_DEVICE_MIN
 overrides it when set, and 0 sends every evaluation to the device. COUNTS
-holds evaluations and elements on each side, and the graphs captured.
+holds evaluations and elements on each side, the graphs captured and the
+host's native calls.
 An evaluation is timed as the vb_host or vb_card phase; on a card its
 graph capture (vb_capture) and the copies back (vb_card_wait) nest in it.
 """
@@ -39,7 +43,8 @@ import torch
 from ...device import resolve_device
 from ...utils import timers
 from .individual import logsumexp
-from .vb_math import fdigamma, fdot, flgamma, flog, fsoftmax, fsum, fsum_xla
+from .vb_math import (_host_library, fdigamma, fdot, flgamma, flog, fsoftmax,
+                      fsum, fsum_xla)
 
 # real elements (G*S*K*N) below which an evaluation asked for on a CUDA
 # device runs on the CPU instead: chip_smoke.py's vb_gate_sweep on an H100
@@ -55,16 +60,18 @@ VB_BUDGET_ELEMS = 64_000_000
 @dataclass
 class VbCounts:
     """VB evaluations and their elements, on the host and on the device,
-    and the CUDA graphs the device's evaluations captured."""
+    the CUDA graphs the device's evaluations captured, and the vb_subclone
+    calls the host library ran (host_native)."""
 
     host: int = 0
     device: int = 0
     host_elements: int = 0
     device_elements: int = 0
     captures: int = 0
+    host_native: int = 0
 
     def reset(self) -> None:
-        self.host = self.device = self.captures = 0
+        self.host = self.device = self.captures = self.host_native = 0
         self.host_elements = self.device_elements = 0
 
 
@@ -121,7 +128,48 @@ def vb_subclone(lnl: torch.Tensor, alpha0: torch.Tensor,
     alpha0 (K,) prior concentrations; resp_init (S, K, N) seed
     responsibilities. Returns (elbo (G, S), alpha (G, S, K),
     responsibilities (G, S, K, N)), each run as the reference's _vb_single
-    (subclone_vb.py:29-67) computes it, in vb_math's arithmetic."""
+    (subclone_vb.py:29-67) computes it, in vb_math's arithmetic.
+
+    On the CPU, float32 and with the host library built, one call of
+    csrc/vb_host.cpp's vb_subclone_host runs the whole evaluation
+    (COUNTS.host_native); otherwise vb_subclone_ops, to the same bits."""
+    out = _vb_subclone_host(lnl, alpha0, resp_init, n_iter)
+    if out is None:
+        return vb_subclone_ops(lnl, alpha0, resp_init, n_iter)
+    return out
+
+
+def _vb_subclone_host(lnl: torch.Tensor, alpha0: torch.Tensor,
+                      resp_init: torch.Tensor, n_iter: int):
+    """vb_subclone in one call of the host library, or None where the
+    tensors are not float32 CPU tensors of vb_subclone's shapes or the
+    library is not built."""
+    tensors = (lnl, alpha0, resp_init)
+    if any(t.device.type != "cpu" or t.dtype != torch.float32
+           for t in tensors) or lnl.dim() != 3:
+        return None
+    G, K, N = lnl.shape
+    S = resp_init.shape[0]
+    if K < 1 or alpha0.shape != (K,) or resp_init.shape != (S, K, N):
+        return None
+    lib = _host_library()
+    if lib is None:
+        return None
+    lnl, alpha0, resp_init = (t.contiguous() for t in tensors)
+    elbo = torch.empty(G, S)
+    alpha = torch.empty(G, S, K)
+    resp = torch.empty(G, S, K, N)
+    lib.vb_subclone_host(lnl.data_ptr(), alpha0.data_ptr(),
+                         resp_init.data_ptr(), elbo.data_ptr(),
+                         alpha.data_ptr(), resp.data_ptr(), G, S, K, N,
+                         int(n_iter), torch.get_num_threads())
+    COUNTS.host_native += 1
+    return elbo, alpha, resp
+
+
+def vb_subclone_ops(lnl: torch.Tensor, alpha0: torch.Tensor,
+                    resp_init: torch.Tensor, n_iter: int = 50):
+    """vb_subclone in torch operations, the form a card runs."""
     lnl4 = lnl[:, None]                                   # (G, 1, K, N)
 
     def step(alpha):
@@ -271,5 +319,6 @@ class SubcloneModel:
 
 
 __all__ = ["SubcloneModel", "SubcloneInference", "vb_subclone",
+           "vb_subclone_ops",
            "subclone_seeds", "vb_route", "evaluation_phase", "host_arrays",
            "COUNTS", "VB_DEVICE_MIN"]

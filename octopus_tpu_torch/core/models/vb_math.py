@@ -26,7 +26,9 @@ On the CPU, exp and log (the element-wise work of a VB round) run in
 csrc/vb_host.cpp, the same operations in the same order without torch's
 float64 temporaries, and so do fsum_xla's sums; fexp_ops, flog_ops and
 fsum_xla_ops are the torch forms, which a card runs and the tests hold the
-host forms to.
+host forms to. The subclone model's whole evaluation runs there too
+(subclone_vb.vb_subclone), each form here that it takes in C++: for it the
+torch forms are the card's, and the CPU's where g++ is missing.
 """
 
 from __future__ import annotations
@@ -217,12 +219,13 @@ def _host_library():
         except (BuildError, OSError):
             _HOST = False
             return None
-        for name, n_sizes in (("vb_fexp", 1), ("vb_flog", 1),
-                              ("vb_fsum_xla", 4)):
+        for name, n_arrays, n_sizes in (("vb_fexp", 2, 1), ("vb_flog", 2, 1),
+                                        ("vb_fsum_xla", 2, 4),
+                                        ("vb_subclone_host", 6, 5)):
             fn = getattr(lib, name)
             fn.restype = None
-            fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int64] * n_sizes
-                           + [ctypes.c_int])
+            fn.argtypes = ([ctypes.c_void_p] * n_arrays
+                           + [ctypes.c_int64] * n_sizes + [ctypes.c_int])
         _HOST = lib
     return _HOST or None
 

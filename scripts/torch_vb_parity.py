@@ -118,9 +118,12 @@ def main(argv=None) -> int:
         max_ulps = max(max_ulps, int(ulps32(a, b).max(initial=0)))
         max_abs = max(max_abs, float(np.abs(a - b).max(initial=0.0)))
     # how far the summation order alone moves the port's ELBOs: the first
-    # evaluations again, with the subclone VB's sums over reads (XLA:CPU's
+    # evaluations again, in the torch form (on the CPU vb_subclone is one
+    # native call), with the subclone VB's sums over reads (XLA:CPU's
     # order) replaced by torch's own float32 sums
+    engine = subclone_vb.vb_subclone
     fsum_xla, fdot = subclone_vb.fsum_xla, subclone_vb.fdot
+    subclone_vb.vb_subclone = subclone_vb.vb_subclone_ops
     subclone_vb.fsum_xla = lambda x, dims=1: x.sum(tuple(range(-dims, 0)))
     subclone_vb.fdot = lambda a, b: (a * b).sum(-1)
     probe = {"evaluations": 0, "elbos": 0, "bit_equal": 0, "max_ulps": 0}
@@ -134,6 +137,7 @@ def main(argv=None) -> int:
             probe["max_ulps"] = max(probe["max_ulps"],
                                     int(ulps32(gle, want).max(initial=0)))
     finally:
+        subclone_vb.vb_subclone = engine
         subclone_vb.fsum_xla, subclone_vb.fdot = fsum_xla, fdot
     ref_lines, port_lines = records(vcf["reference"]), records(vcf["port"])
     differ = [[r, p] for r, p in zip(ref_lines, port_lines) if r != p]

@@ -4,12 +4,17 @@ Everything a cell needs is found by name: the cell in BENCHMARK.json, its
 configuration file, `traffic/<mix>.json` and, for a traced run, one reader
 a per-layer metric in `metrics/<metric>.py`.
 
-The window is a closed loop with one client. It calls the contig's shards
-in order, each through the CLI's own path (`parse_args_with_config`, then
-`run_calling`, `-T` the shard, `--device`, the configuration's caller
-arguments, all else at its default), back to back until `seconds` have
-passed; the last shard to start runs to its end. A program fast enough to
-reach the contig's end wraps to its first shard again.
+The window is one pass with one client: it calls every measured shard of
+the contig once, in order, each through the CLI's own path
+(`parse_args_with_config`, then `run_calling`, `-T` the shard, `--device`,
+the configuration's caller arguments, all else at its default), back to
+back. So every run, of any program, calls the same shards from the same
+reads, and only the sequence drawn from the seed (`simulate.py`) and the
+timing vary (a traffic with `reads_from_seed` draws its reads from the
+seed too). `seconds` is a cap: no shard starts once it has passed (the
+last one started runs to its end), and the result line and the window's
+log say whether the pass completed (`pass_complete`), so that a rate over
+a cut pass shows as one.
 """
 
 from __future__ import annotations
@@ -86,6 +91,24 @@ def shards_of(traffic: dict, length: int) -> tuple:
     return bounds[-1], bounds[:-1]
 
 
+def one_pass(measured: list, seconds: float, call_one,
+             clock=time.perf_counter_ns) -> tuple:
+    """The window: `call_one(region)` for each measured shard once, in
+    order, none started once `seconds` have passed since the window
+    opened. Returns (the window's start, the end of its last shard, on
+    `clock` in ns; each shard's seconds, from the end of the one before)."""
+    t0 = last_end = clock()
+    shard_s = []
+    for region in measured:
+        if (clock() - t0) / 1e9 >= seconds:
+            break
+        call_one(region)
+        end = clock()
+        shard_s.append(round((end - last_end) / 1e9, 3))
+        last_end = end
+    return t0, last_end, shard_s
+
+
 @dataclass
 class Reading:
     """What the per-layer readers read from a traced window."""
@@ -136,7 +159,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     from octopus_tpu_torch import run as program
     from octopus_tpu_torch.config import options
     from octopus_tpu_torch.core.likelihood import likelihood_array, pairhmm_batch
-    from octopus_tpu_torch.core.models import subclone_vb
+    from octopus_tpu_torch.core.models import genotype_likelihoods, subclone_vb
     from octopus_tpu_torch.utils import timers
 
     on_card = device == "cuda"
@@ -179,40 +202,35 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
         for counts in pairhmm_batch.KERNEL_COUNTS.values():
             counts.reset()
         subclone_vb.COUNTS.reset()
+        genotype_likelihoods.COUNTS.reset()
         if trace and on_card:
             prof = devtrace.profiler()
             prof.__enter__()
         setup_s = time.perf_counter() - started
         capture.on = True
-        attempted = failed = 0
-        passes: list = []
-        shard_s: list = []
-        called_bp = 0
-        wall_offset = time.time_ns() - time.perf_counter_ns()
-        t0 = time.perf_counter_ns()
-        last_end = t0
-        while (time.perf_counter_ns() - t0) / 1e9 < seconds:
-            k = attempted % len(measured)
-            if k == 0:
-                passes.append([])
-            region = measured[k]
-            out = os.path.join(work, f"shard{attempted}.vcf")
-            attempted += 1
+        failed = 0
+        called: list = []           # (region, VCF path) of each shard that completed
+
+        def call_one(region):
+            nonlocal failed
+            out = os.path.join(work, f"shard{region[0]}.vcf")
             try:
                 if spans:
                     with spans.span("run_calling"):
                         call(region, out)
                 else:
                     call(region, out)
-                passes[-1].append((region, out))
-                called_bp += region[1] - region[0]
-            except Exception:       # a shard that fails counts and the loop goes on
+                called.append((region, out))
+            except Exception:       # a shard that fails counts and the pass goes on
                 failed += 1
                 log(f"shard {region} failed:\n{traceback.format_exc()}")
             if on_card:
                 torch.cuda.synchronize()
-            shard_s.append(round((time.perf_counter_ns() - last_end) / 1e9, 3))
-            last_end = time.perf_counter_ns()
+
+        wall_offset = time.time_ns() - time.perf_counter_ns()
+        t0, last_end, shard_s = one_pass(measured, seconds, call_one)
+        attempted = len(shard_s)
+        called_bp = sum(end - begin for (begin, end), _ in called)
         capture.on = False
         capture.finish()
         if prof is not None:
@@ -231,10 +249,11 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
         kernel_launches = pairhmm_batch.KERNEL_COUNTS["pairhmm"].launches
         all_launches = sum(c.launches for c in pairhmm_batch.KERNEL_COUNTS.values())
         vb_counts = vars(subclone_vb.COUNTS).copy()
+        genotype_counts = vars(genotype_likelihoods.COUNTS).copy()
 
         # the check, once the window has closed
         called_mb = called_bp / 1e6
-        shares, counts = check.records_shares(passes, inputs.sites,
+        shares, counts = check.records_shares(called, inputs.sites,
                                               inputs.reference)
         seen = check.unseen(capture, all_launches, routing)
 
@@ -261,19 +280,22 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
                 "checks": {k: {"value": j["value"], "limit": j["limit"]}
                            for k, j in cj.items()}}
         log(json.dumps({"window": {
-            "passes": len(passes), "shards": attempted, "failed": failed,
+            "pass_complete": attempted == len(measured), "shards": attempted,
+            "failed": failed,
+            "regions": [f"{b}-{e}" for b, e in measured[:attempted]],
             "called_kb": called_bp / 1e3, "window_s": window_ns / 1e9,
             "setup_s": setup_s, "card": card, "card_before": card_before,
             "kernel_launches": kernel_launches, **routing_counts,
             "launches_per_mb": kernel_launches / called_mb if called_mb else None,
             "card_pairs_per_mb": routing_counts["card_pairs"] / called_mb if called_mb else None,
             "host_dp_pairs_per_mb": routing_counts["host_pairs"] / called_mb if called_mb else None,
-            "vb": vb_counts, "unseen": seen["parts"],
+            "vb": vb_counts, "genotype": genotype_counts, "unseen": seen["parts"],
             "checked": {k: v for k, v in hmm.items() if k != "hmm_err"},
             "records": counts, "shard_s": shard_s}}))
 
         result: dict = {"correct": bool(correct), "attempted": attempted,
-                        "failed": failed}
+                        "failed": failed,
+                        "pass_complete": attempted == len(measured)}
         if trace:
             dev = (devtrace.read(prof, (t0 + wall_offset, last_end + wall_offset))
                    if prof is not None else None)
@@ -316,5 +338,5 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
         shutil.rmtree(work, ignore_errors=True)
 
 
-__all__ = ["run_cell", "load_spec", "load_cell", "shards_of", "forbidden_modules",
-           "Reading", "FORBIDDEN"]
+__all__ = ["run_cell", "load_spec", "load_cell", "shards_of", "one_pass",
+           "forbidden_modules", "Reading", "FORBIDDEN"]

@@ -129,20 +129,15 @@ def vb_gap(capture, settings: dict | None, vb_counts,
             "vb_unseen": capture.vb_unseen + abs(counted - capture.vb_evaluations)}
 
 
-def records_shares(passes: list, sites: list, reference: np.ndarray) -> tuple:
-    """(the compared shares, summed counts) over the window's passes, each
-    [(region (begin, end), VCF path)] of the shards that completed."""
-    total: dict = defaultdict(int)
-    for shards in passes:
-        records = []
-        for _, path in shards:
-            records.extend(ref_records.read_vcf(path))
-        counts = ref_records.compare(records, sites,
-                                     [region for region, _ in shards],
-                                     reference)
-        for k, v in counts.items():
-            total[k] += v
-    return ref_records.shares(total), dict(total)
+def records_shares(called: list, sites: list, reference: np.ndarray) -> tuple:
+    """(the compared shares, counts) over the window's shards that
+    completed, [(region (begin, end), VCF path)]."""
+    records = []
+    for _, path in called:
+        records.extend(ref_records.read_vcf(path))
+    counts = ref_records.compare(records, sites, [region for region, _ in called],
+                                 reference)
+    return ref_records.shares(counts), dict(counts)
 
 
 def judge(numbers: dict, limits: dict) -> dict:

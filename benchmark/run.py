@@ -3,9 +3,10 @@
     python -m benchmark.run --workload <name> --seed <n> --seconds <s> --trace <0|1>
 
 The last line of standard output is one JSON object: `correct`,
-`attempted` (shards started in the window), `failed`, `metrics` (with
-`--trace 0` the cell's end-to-end metrics, with `--trace 1` its per-layer
-ones), `device`, with `--trace 1` a `breakdown`, and last `checks`, each
+`attempted` (shards started in the window), `failed`, `pass_complete`
+(whether the window called every measured shard before its cap),
+`metrics` (with `--trace 0` the cell's end-to-end metrics, with
+`--trace 1` its per-layer ones), `device`, with `--trace 1` a `breakdown`, and last `checks`, each
 number compared with its limit (also the last lines of standard error).
 It exits 1 and prints no result without a CUDA card, when the cell needs
 more cards than there are, or when a module of JAX or of the JAX package

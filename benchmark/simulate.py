@@ -6,18 +6,35 @@ base quality, error rate, variant rates, somatic clone); the traffic file
 gives the contig and its shards and may override the variant spacing.
 
 The variant layout (the sites' positions, kinds, sizes, zygosities and
-which haplotypes carry them, somatic sites included) comes from the
-traffic's fixed ``layout_seed``; the reference bases, the inserted bases
-and the reads come from ``--seed``. So every seed calls the same variation
-at the same places of every shard, on another sequence from other reads,
-and a seed always gives the same inputs.
+which haplotypes carry them, somatic sites included) and the reads'
+draws (where each read starts, whether a tumour read is of the clone,
+which of its bases are errors and to which other base each changes) come
+from the traffic's fixed ``layout_seed``; the reference bases and the
+inserted bases come from ``--seed``. So every seed calls the same
+variation from the same reads at the same places of every shard, on
+another sequence: the same work, so that the seed does not move a run's
+time (errors drawn from the seed formed, on a few seeds, clusters of
+candidates that cost a shard ten times its median), and a seed always
+gives the same inputs.
+
+A traffic that sets ``reads_from_seed`` (true) draws the reads from
+``--seed`` instead, after the sites, with errors that draw a random base,
+as this generator did before the reads were fixed. Some of those draws
+run the card out of memory in one window of the tumour cell, a fault of
+the program that the fixed reads do not reach: PERF.md's first open
+question, and the card test ``test_window_of_seed_drawn_reads_on_the_card``
+that holds the program to such a draw.
 
 The model is that of the port's ``bench_e2e.simulate`` and
 ``utils.synthetic.simulate_tumour_normal``: substitution errors that draw a
 random base, every third read (in coordinate order) reverse, reads placed
 uniformly on their haplotype, alternating haplotypes, a tumour read taken
 from the clone with the sample's clone fraction; the per-read loops are
-vectorised here, so the draws differ from those functions' for a seed.
+vectorised here, so the draws differ from those functions' for a seed. An
+error draws a random base, which changes the base three times in four: it
+is drawn here as a change to one of the three other bases at three
+quarters of the error rate, the same distribution, so that which bases an
+error changes does not depend on the sequence.
 """
 
 from __future__ import annotations
@@ -200,9 +217,12 @@ def _span(ops: list) -> int:
 
 def sample_reads(rng, name: str, haps: list, n_ref: int, depth: float,
                  read_len: int, err: float, clone_haps: list | None,
-                 clone_fraction: float, reverse_every: int) -> SampleReads:
+                 clone_fraction: float, reverse_every: int,
+                 shift_errors: bool = True) -> SampleReads:
     """Reads of one sample: read i from haplotype i % 2, of the clone with
-    probability clone_fraction, at a uniform begin."""
+    probability clone_fraction, at a uniform begin. An error changes its
+    base to one of the other three at 3/4 of `err` (`shift_errors`), or
+    draws a random base at `err`: the same distribution."""
     n_reads = int(n_ref * depth / read_len)
     which = np.arange(n_reads) % 2
     from_clone = (rng.random(n_reads) < clone_fraction) if clone_haps else \
@@ -241,8 +261,13 @@ def sample_reads(rng, name: str, haps: list, n_ref: int, depth: float,
                 cigars_by_read[int(sel[j])] = ops
     for lo in range(0, n_reads, CHUNK):
         block = seq[lo:lo + CHUNK]
-        errors = rng.random(block.shape, dtype=np.float32) < err
-        block[errors] = rng.integers(0, 4, int(errors.sum())).astype(np.uint8)
+        if shift_errors:
+            errors = rng.random(block.shape, dtype=np.float32) < 0.75 * err
+            shift = rng.integers(1, 4, int(errors.sum())).astype(np.uint8)
+            block[errors] = (block[errors] + shift) % 4
+        else:
+            errors = rng.random(block.shape, dtype=np.float32) < err
+            block[errors] = rng.integers(0, 4, int(errors.sum())).astype(np.uint8)
     keep = np.flatnonzero(ref_begin >= 0)
     order = keep[np.argsort(ref_begin[keep], kind="stable")]
     rank = np.full(n_reads, -1, np.int64)
@@ -269,14 +294,17 @@ def simulate(config: dict, traffic: dict, seed: int) -> Inputs:
     normal = [haplotype(reference, sites, h, False) for h in (0, 1)]
     clone = ([haplotype(reference, sites, h, True) for h in (0, 1)]
              if somatic else None)
+    from_seed = bool(traffic.get("reads_from_seed", False))
     samples = []
-    for sample in config["samples"]:
+    for k, sample in enumerate(config["samples"]):
         fraction = float(sample.get("clone_fraction", 0.0))
+        rng_reads = (rng if from_seed else
+                     np.random.default_rng([traffic["layout_seed"], k + 1]))
         samples.append(sample_reads(
-            rng, sample["name"], normal, n, float(sample["depth"]),
+            rng_reads, sample["name"], normal, n, float(sample["depth"]),
             int(reads_cfg["length"]), float(reads_cfg["error_rate"]),
             clone if fraction > 0 else None, fraction,
-            int(reads_cfg["reverse_every"])))
+            int(reads_cfg["reverse_every"]), shift_errors=not from_seed))
     return Inputs(reference=reference, sites=sites, samples=samples,
                   read_len=int(reads_cfg["length"]),
                   base_qual=int(reads_cfg["base_qual"]),

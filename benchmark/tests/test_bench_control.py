@@ -13,6 +13,8 @@ cell on one card has no exchange between chips, and no step state to leave
 unchanged."""
 
 import json
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -22,6 +24,7 @@ from benchmark import cell
 SPEC = cell.load_spec()
 WORKLOADS = [w["name"] for w in SPEC["workloads"]]
 SMALL = {"contig_kb": 20, "shard_kb": 5}
+CAP = 600                   # seconds no rehearsal reaches: each calls its whole pass
 SOMATIC = "somatic-t60n30.subclonal"
 # the int8 control needs some scores above 127, which at 0.1% errors a
 # window's first shard of tumour and normal reads holds
@@ -32,8 +35,8 @@ def config_of(workload):
     return cell.load_cell(SPEC, workload)[1]
 
 
-def rehearse(workload, tmp_path, seconds=2, size=SMALL, **kw):
-    return cell.run_cell(workload, 2**31 + 17, seconds, False, device="cpu",
+def rehearse(workload, tmp_path, size=SMALL, **kw):
+    return cell.run_cell(workload, 2**31 + 17, CAP, False, device="cpu",
                          traffic_override=size, tmp_root=str(tmp_path), **kw)
 
 
@@ -49,7 +52,7 @@ def few_threads(monkeypatch):
 def test_control_fails_and_int16_does_not(tmp_path):
     """At a test's size on the CPU, on one window: the program is correct,
     the int8 and bfloat16 controls are not, and int16 loses nothing."""
-    res = rehearse(SOMATIC, tmp_path, 8, CONTROL_SIZE,
+    res = rehearse(SOMATIC, tmp_path, CONTROL_SIZE,
                    controls=("int8", "int16", "bfloat16"))
     assert res["correct"], res["checks"]
     controls = res["controls"]
@@ -196,18 +199,63 @@ def test_sound_run_is_correct(tmp_path):
     assert res["correct"], res["checks"]
 
 
+CARD = """
+import json, sys
+sys.path.insert(0, {root!r})
+from benchmark import cell
+res = cell.run_cell({workload!r}, {seed}, {seconds}, False, controls={controls!r},
+                    traffic_override={override!r}, tmp_root={tmp!r})
+print(json.dumps({{"correct": res["correct"], "checks": res["checks"],
+                  "pass_complete": res["pass_complete"],
+                  "controls": res.get("controls", {{}})}}))
+"""
+
+
 @pytest.mark.parametrize("workload", WORKLOADS)
 def test_control_on_the_card(workload, tmp_path):
     """At the cell's own size and load, on three seeds: the program is
-    correct and each control is not (a short window; the readings print)."""
+    correct and each control is not, on the window a run measures, one
+    process a seed as the benchmark runs it (the readings print). One
+    process a seed, and not three windows in one, because the program's
+    card VB runs out of memory in the third (PERF.md, first open question;
+    `test_window_of_seed_drawn_reads_on_the_card`): once that is mended,
+    three windows in one process can be held here again."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     controls = ("int8", "bfloat16") if "vb" in config_of(workload) else ("int8",)
     for seed in (2**31 + 201, 2**31 + 202, 2**31 + 203):
-        res = cell.run_cell(workload, seed, 10, False, controls=controls,
-                            tmp_root=str(tmp_path))
+        code = CARD.format(root=str(cell.ROOT), workload=workload, seed=seed,
+                           seconds=SPEC["run_seconds"], controls=controls,
+                           override=None, tmp=str(tmp_path))
+        out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                             text=True, timeout=600, cwd=str(tmp_path))
+        assert out.returncode == 0, out.stderr[-3000:]
+        res = json.loads(out.stdout.strip().splitlines()[-1])
         print(workload, seed, "program", json.dumps(res["checks"]))
         for name, control in res["controls"].items():
             print(workload, seed, name, json.dumps(control["checks"]))
         assert res["correct"]
         assert not any(c["correct"] for c in res["controls"].values())
+
+
+def test_window_of_seed_drawn_reads_on_the_card(tmp_path):
+    """One window of the tumour cell in a process of its own, as a run
+    measures it, over reads drawn from the seed (`reads_from_seed`) on a
+    300 kb contig, seed 2,180,000,106: the pass completes and is correct.
+    It fails on the card while a fault of the program stands (PERF.md,
+    first open question): the card's VB runs out of memory in CUDA Graphs'
+    private pools at shard 220-230 kb, after the shards before it, though
+    that shard alone runs. The benchmark's traffic fixes its reads and
+    does not reach this draw, so this test is where the fault shows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    code = CARD.format(root=str(cell.ROOT), workload=SOMATIC, seed=2_180_000_106,
+                       seconds=600, controls=(),
+                       override={"contig_kb": 300, "reads_from_seed": True},
+                       tmp=str(tmp_path))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=900, cwd=str(tmp_path))
+    assert out.returncode == 0, out.stderr[-3000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    print(SOMATIC, "reads from the seed", json.dumps(res["checks"]))
+    assert res["pass_complete"] and res["correct"]

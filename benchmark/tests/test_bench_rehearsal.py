@@ -1,6 +1,7 @@
 """A tiny rehearsal of each cell on the CPU, in a process of its own: the
-harness's whole path (inputs, warm-up, window, check, readers) runs, comes
-out correct, and leaves no module of JAX or of the JAX package loaded
+harness's whole path (inputs, warm-up, a whole pass under a cap it does
+not reach, check, readers) runs, comes out correct with its pass
+complete, and leaves no module of JAX or of the JAX package loaded
 (top-level names compared whole)."""
 
 import json
@@ -17,10 +18,11 @@ CODE = """
 import json, sys
 sys.path.insert(0, {root!r})
 from benchmark import cell
-res = cell.run_cell({workload!r}, 2**31 + 3, 2, {trace}, device="cpu",
-                    traffic_override={{"contig_kb": 30, "shard_kb": 10}},
+res = cell.run_cell({workload!r}, 2**31 + 3, 300, {trace}, device="cpu",
+                    traffic_override={{"contig_kb": 20, "shard_kb": 5}},
                     tmp_root={tmp!r})
 print(json.dumps({{"found": cell.forbidden_modules(), "correct": res["correct"],
+                  "pass_complete": res["pass_complete"],
                   "metrics": sorted(res["metrics"]), "checks": res["checks"]}}))
 """
 
@@ -38,6 +40,7 @@ def test_rehearsal_on_the_cpu(workload, trace, tmp_path):
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["found"] == []
     assert res["correct"], res["checks"]
+    assert res["pass_complete"]
     kind = "per_layer" if trace else "end_to_end"
     wanted = {m["name"] for m in cell.metrics_of(SPEC, kind, workload)}
     if trace:

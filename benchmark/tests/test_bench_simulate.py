@@ -1,5 +1,7 @@
 """The generator and the BAM writer: one seed, one set of inputs; the same
-amount of variation for every seed; files the port reads back as written."""
+variation and the same reads for every seed, on another sequence (reads
+from the seed where the traffic asks for them); files the port reads back
+as written."""
 
 import os
 
@@ -12,9 +14,9 @@ SPEC = cell.load_spec()
 SMALL = {"contig_kb": 30, "shard_kb": 10}
 
 
-def inputs(workload, seed):
+def inputs(workload, seed, **traffic_keys):
     _, config, traffic = cell.load_cell(SPEC, workload)
-    return simulate.simulate(config, {**traffic, **SMALL}, seed)
+    return simulate.simulate(config, {**traffic, **SMALL, **traffic_keys}, seed)
 
 
 def same(a, b):
@@ -44,8 +46,32 @@ def test_every_seed_the_same_variation(workload):
                               len(s.alt) if s.kind == "ins" else 0)
                              for s in x.sites)
     assert kinds(a) == kinds(b)
+    # the same reads at the same places, with their errors at the same
+    # bases, on another sequence
+    cols = np.arange(a.read_len)
     for x, y in zip(a.samples, b.samples):
-        assert abs(len(x.begins) - len(y.begins)) < 5
+        assert np.array_equal(x.begins, y.begins) and x.cigars == y.cigars
+        assert np.array_equal(x.flags, y.flags)
+        simple = np.asarray([k not in x.cigars for k in range(len(x.begins))])
+        at = x.begins[simple, None] + cols
+        assert np.array_equal(x.seq[simple] != a.reference[at],
+                              y.seq[simple] != b.reference[at])
+        assert not np.array_equal(x.seq, y.seq)
+
+
+@pytest.mark.parametrize("workload", [w["name"] for w in SPEC["workloads"]])
+def test_reads_from_seed(workload):
+    """`reads_from_seed` draws the reads from the seed: the same seed gives
+    the same reads, another seed other reads, on the same variation."""
+    seed = 2**31 + 41
+    a = inputs(workload, seed, reads_from_seed=True)
+    same(a, inputs(workload, seed, reads_from_seed=True))
+    b = inputs(workload, seed + 1, reads_from_seed=True)
+    fixed = inputs(workload, seed)
+    assert [(s.pos, s.kind) for s in a.sites] == [(s.pos, s.kind) for s in b.sites]
+    for x, y, z in zip(a.samples, b.samples, fixed.samples):
+        assert not np.array_equal(x.begins, y.begins)
+        assert not np.array_equal(x.begins, z.begins)
 
 
 def test_depth_and_clone():

@@ -1,14 +1,22 @@
 """The per-layer readers of the program's spans and counters.
 
 On a traced rehearsal of each cell (the sizes of test_bench_rehearsal.py;
-on the CPU, and on a card where there is one): every phase the window
-recorded is read by exactly one per-layer reader, the s/Mb readers add up
-to the window's seconds a Mb, and the counter readers read the window's
-counts. A counter reader returns None on a program without its counter. On
+on the CPU, and on a card where there is one), and of the germline cell
+`germline-illumina35x.wgs` on the CPU, which BENCHMARK.json leaves out
+(its configuration file is kept) and a spec in memory adds: every phase
+the window recorded is read by exactly one per-layer reader, the s/Mb
+readers add up to the window's seconds a Mb, and the counter readers read
+the window's counts; a cell whose configuration has no `vb` opens no VB
+phase and counts no VB evaluation. The germline rehearsal's `correct` is
+not asserted: a fault of the program (allele depths that count no
+ambiguous read, so some hom calls are filtered) fails its recall floor.
+The window is one pass: the rehearsal calls each measured shard once, in
+order. A counter reader returns None on a program without its counter. On
 the card (skipped without one): the harness's clock, the path that puts
 the card's idle gaps on host phases, holds a kernel inside the span that
 issued it."""
 
+import copy
 import json
 import subprocess
 import sys
@@ -21,6 +29,15 @@ from benchmark import cell, probes
 
 SPEC = cell.load_spec()
 COUNTERS = ("vb_host_evals_per_mb", "vb_captures_per_mb", "shortcut_pairs_per_mb")
+GERMLINE = "germline-illumina35x.wgs"
+# BENCHMARK.json with the germline cell, in memory
+WIDE = copy.deepcopy(SPEC)
+WIDE["configs"].append({"name": "germline-illumina35x",
+                        "file": "benchmark/configs/germline-illumina35x.json"})
+WIDE["workloads"].append({"name": GERMLINE, "config": "germline-illumina35x",
+                          "traffic": "wgs", "chips": 1})
+SIZE = {"contig_kb": 20, "shard_kb": 5}
+CAP = 600                   # seconds no rehearsal reaches: each calls its whole pass
 
 
 def reading(self_s: dict, called_mb: float = 1.0) -> cell.Reading:
@@ -39,11 +56,12 @@ def span_readers(workload: str) -> dict:
 
 @pytest.fixture(scope="module",
                 params=[(w["name"], device) for w in SPEC["workloads"]
-                        for device in ("cpu", "cuda")],
+                        for device in ("cpu", "cuda")] + [(GERMLINE, "cpu")],
                 ids=lambda p: "-".join(p))
 def traced(request, tmp_path_factory):
     """(workload, result line, span self seconds, window log, shortcut
-    pairs) of one traced rehearsal, on the CPU or on the card."""
+    pairs, whether the configuration has VB) of one traced rehearsal, on
+    the CPU or on the card."""
     import contextlib
     import io
 
@@ -66,32 +84,34 @@ def traced(request, tmp_path_factory):
     mp.delenv("OCTOPUS_TPU_HOST_HMM_MAX", raising=False)
     try:
         with contextlib.redirect_stderr(log):
-            res = cell.run_cell(workload, 2**31 + 3, 2 if device == "cpu" else 8,
-                                True, device=device,
-                                traffic_override={"contig_kb": 30, "shard_kb": 10},
+            res = cell.run_cell(workload, 2**31 + 3, CAP, True, device=device,
+                                spec=WIDE, traffic_override=SIZE,
                                 tmp_root=str(tmp_path_factory.mktemp("traced")))
     finally:
         mp.undo()
     window = next(json.loads(line)["window"] for line in log.getvalue().splitlines()
                   if line.startswith('{"window"'))
     return (workload, res, recorded[0], window,
-            likelihood_array.ROUTING.shortcut_pairs)
+            likelihood_array.ROUTING.shortcut_pairs,
+            "vb" in cell.load_cell(WIDE, workload)[1])
 
 
 def test_every_phase_is_read_by_one_reader(traced):
-    workload, _, self_s, _, _ = traced
+    workload, _, self_s, _, _, has_vb = traced
     readers = span_readers(workload)
     for name in self_s:
         reading_one = reading({name: 1.0})
         by = [m for m, read in readers.items() if read(reading_one)]
         assert len(by) == 1, (name, by)
     # the phases the new readers read, opened on the CPU and the card alike
-    assert {"active_region", "vb_host", "populate_jobs", "populate_shortcut",
+    assert {"active_region", "populate_jobs", "populate_shortcut",
             "populate_stage"} <= set(self_s)
+    vb_phases = {name for name in self_s if name.startswith("vb_")}
+    assert ("vb_host" in vb_phases) if has_vb else not vb_phases, vb_phases
 
 
 def test_span_readers_add_up_to_the_window(traced):
-    workload, res, _, window, _ = traced
+    workload, res, _, window, _, _ = traced
     values = res["metrics"]
     total = sum(values[m]["value"] for m in span_readers(workload))
     per_mb = window["window_s"] / (window["called_kb"] / 1e3)
@@ -99,7 +119,7 @@ def test_span_readers_add_up_to_the_window(traced):
 
 
 def test_counter_readers_read_the_window_counts(traced):
-    _, res, _, window, shortcut_pairs = traced
+    _, res, _, window, shortcut_pairs, has_vb = traced
     called_mb = window["called_kb"] / 1e3
     values = {k: v["value"] for k, v in res["metrics"].items()}
     assert values["vb_host_evals_per_mb"] == pytest.approx(
@@ -111,7 +131,25 @@ def test_counter_readers_read_the_window_counts(traced):
     assert (window["vb"]["captures"] > 0) == (window["vb"]["device"] > 0)
     assert values["shortcut_pairs_per_mb"] == pytest.approx(
         shortcut_pairs / called_mb)
-    assert window["vb"]["host"] > 0 and shortcut_pairs > 0
+    assert shortcut_pairs > 0
+    assert set(window["genotype"]) == {"host", "device"}
+    if has_vb:
+        assert window["vb"]["host"] > 0
+    else:
+        assert not any(window["vb"].values()), window["vb"]
+        assert values["vb_host_evals_per_mb"] == 0
+        assert values["vb_host_native_per_mb"] == 0
+        # the individual model's genotype reductions, reset before the window
+        assert sum(window["genotype"].values()) > 0
+
+
+def test_rehearsal_calls_its_whole_pass_once_in_order(traced):
+    workload, res, _, window, _, _ = traced
+    traffic = cell.load_cell(WIDE, workload)[2]
+    _, measured = cell.shards_of({**traffic, **SIZE}, SIZE["contig_kb"] * 1000)
+    assert window["pass_complete"] and res["attempted"] == len(measured)
+    assert window["regions"] == [f"{b}-{e}" for b, e in measured]
+    assert len(window["shard_s"]) == len(measured)
 
 
 def test_counter_readers_return_none_without_the_counter(monkeypatch):

@@ -214,29 +214,42 @@ class FacetBundle:
         return out
 
     def allele_support(self, variant: Variant) -> list:
-        """Per sample: reads assigned to alt-carrying haplotypes."""
+        """Per sample: reads that support the alt by the rule of
+        `allele_support_context`."""
         return [alt for alt, _ in self.allele_support_context(variant)]
 
     def allele_support_context(self, variant: Variant) -> list:
-        """Per sample (alt_assigned, assigned_depth) among reads overlapping
-        the variant, from HMM read-to-haplotype assignment — the reference's
-        AD/ADP/AF source (read_assignments.hpp:25-34, allele_depth.cpp)."""
-        vb = variant.begin
-        ve = max(variant.end, variant.begin + 1)
+        """Per sample (alt_support, depth) among reads overlapping the
+        variant, from HMM read-to-haplotype assignment — the reference's
+        AD/ADP/AF source (read_assignments.hpp:25-34, allele_depth.cpp).
+
+        A read supports the alt when it is assigned to a haplotype that
+        carries it, or when it is tied and every haplotype it ties on
+        carries it (the reference's compute_allele_support over an
+        AmbiguousRead's haplotypes, read_assigner.hpp:63-91): over a hom
+        site every called haplotype carries the alt, so the reads there,
+        tied when no het site lies within a read, all count. The depth
+        counts the assigned reads and the tied reads whose tie set is all
+        alt or all reference at the site. The tied reads credited to the
+        alt are counted in likelihood_array.ROUTING.tied_reads_credited."""
+        from ..likelihood.likelihood_array import ROUTING
+        from ...utils import timers
+        assignments = self.read_assignments      # assignment runs outside the phase
         out = []
-        for b, a, haps in zip(self.overlapping_reads, self.read_assignments,
-                              self.called_haplotypes_by_sample):
-            if a is None or not len(b):
-                out.append((0, 0))
-                continue
-            alt_haps = sorted(
-                i for i, h in enumerate(haps)
-                if any(v.begin == variant.begin and v.alt == variant.alt
-                       for v in h.variants))
-            over = (b.begins < ve) & (b.ends > vb)
-            assigned = over & (a.hap_of_read >= 0)
-            alt = assigned & np.isin(a.hap_of_read, alt_haps)
-            out.append((int(alt.sum()), int(assigned.sum())))
+        with timers.phase("allele_support"):
+            credited = 0
+            for b, a, haps in zip(self.overlapping_reads, assignments,
+                                  self.called_haplotypes_by_sample):
+                if a is None or not len(b):
+                    out.append((0, 0))
+                    continue
+                over = _overlapping(b, variant)
+                alt, ref, tied = _supporting_reads(a, *_site_haplotypes(
+                    haps, variant))
+                depth = over & (~tied | alt | ref)
+                credited += int((over & alt & tied).sum())
+                out.append((int((over & alt).sum()), int(depth.sum())))
+            ROUTING.record_tied_credits(credited)
         return out
 
     def allele_assignment_support(self, variant: Variant) -> list:
@@ -246,42 +259,37 @@ class FacetBundle:
         alleles.
 
         Returns, per sample, a dict with:
-          'alt'/'ref': AlleleSupportSet of reads assigned to haplotypes
-                       carrying / not carrying the allele at this site
-                       (haplotypes carrying a DIFFERENT alt of the same
-                       site support neither),
+          'alt'/'ref': AlleleSupportSet of the reads that support the
+                       allele / the reference at this site, by the rule of
+                       `allele_support_context` (haplotypes carrying a
+                       DIFFERENT alt of the same site support neither),
           'n_overlapping', 'n_ambiguous': overlapping-read accounting for
                        ARF (ambiguous_read_fraction.cpp:34-53).
         """
-        vb = variant.begin
-        ve = max(variant.end, variant.begin + 1)
+        from ...utils import timers
+        assignments = self.read_assignments      # assignment runs outside the phase
         out = []
-        for b, a, haps in zip(self.overlapping_reads, self.read_assignments,
-                              self.called_haplotypes_by_sample):
-            if a is None or not len(b):
-                out.append(None)
-                continue
-            alt_haps, ref_haps = [], []
-            for i, h in enumerate(haps):
-                if any(v.begin == variant.begin and v.alt == variant.alt
-                       for v in h.variants):
-                    alt_haps.append(i)
-                elif not any(v.begin == variant.begin for v in h.variants):
-                    ref_haps.append(i)
-            over = (b.begins < ve) & (b.ends > vb)
-            entry = {
-                "n_overlapping": int(over.sum()),
-                "n_ambiguous": int((over & (a.hap_of_read < 0)).sum()),
-            }
-            for key, hap_ids in (("alt", alt_haps), ("ref", ref_haps)):
-                sel = np.flatnonzero(np.isin(a.hap_of_read, hap_ids)
-                                     & (a.hap_of_read >= 0))
-                entry[key] = AlleleSupportSet(
-                    begins=b.begins[sel], ends=b.ends[sel],
-                    seq_lengths=b.lengths()[sel],
-                    is_forward=(b.flags[sel] & 0x10) == 0,
-                    reads=[(b, int(i)) for i in sel])
-            out.append(entry)
+        with timers.phase("allele_support"):
+            for b, a, haps in zip(self.overlapping_reads, assignments,
+                                  self.called_haplotypes_by_sample):
+                if a is None or not len(b):
+                    out.append(None)
+                    continue
+                over = _overlapping(b, variant)
+                alt, ref, tied = _supporting_reads(a, *_site_haplotypes(
+                    haps, variant))
+                entry = {
+                    "n_overlapping": int(over.sum()),
+                    "n_ambiguous": int((over & tied).sum()),
+                }
+                for key, reads in (("alt", alt), ("ref", ref)):
+                    sel = np.flatnonzero(reads)
+                    entry[key] = AlleleSupportSet(
+                        begins=b.begins[sel], ends=b.ends[sel],
+                        seq_lengths=b.lengths()[sel],
+                        is_forward=(b.flags[sel] & 0x10) == 0,
+                        reads=[(b, int(i)) for i in sel])
+                out.append(entry)
         return out
 
     def mean_likelihoods(self, begin: int, end: int) -> list:
@@ -339,6 +347,41 @@ class FacetBundle:
         if n_groups == 0:
             return None
         return n_concordant / n_groups
+
+
+def _overlapping(b: ReadBatch, variant: Variant) -> np.ndarray:
+    vb = variant.begin
+    ve = max(variant.end, variant.begin + 1)
+    return (b.begins < ve) & (b.ends > vb)
+
+
+def _site_haplotypes(haps: list, variant: Variant) -> tuple:
+    """(alt, ref) bool masks over `haps`: the haplotypes that carry this
+    alt, and those that carry no allele at the site."""
+    alt = np.zeros(len(haps), bool)
+    ref = np.zeros(len(haps), bool)
+    for i, h in enumerate(haps):
+        if any(v.begin == variant.begin and v.alt == variant.alt
+               for v in h.variants):
+            alt[i] = True
+        elif not any(v.begin == variant.begin for v in h.variants):
+            ref[i] = True
+    return alt, ref
+
+
+def _supporting_reads(a, alt_haps: np.ndarray, ref_haps: np.ndarray) -> tuple:
+    """(alt, ref, tied) bool masks over an Assignment's reads: a read
+    supports a side when it is assigned to one of its haplotypes, or when
+    it is tied and every haplotype of its tie set is one of them."""
+    h = a.hap_of_read
+    tied = h < 0
+    slot = np.where(tied, 0, h)
+    alt = ~tied & alt_haps[slot]
+    ref = ~tied & ref_haps[slot]
+    if a.ties is not None and tied.any():
+        alt |= tied & ~np.any(a.ties & ~alt_haps[:, None], axis=0)
+        ref |= tied & ~np.any(a.ties & ~ref_haps[:, None], axis=0)
+    return alt, ref, tied
 
 
 __all__ = ["AlleleSupportSet", "FacetBlock", "FacetBundle"]

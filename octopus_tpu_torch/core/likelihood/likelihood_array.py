@@ -68,11 +68,15 @@ class RoutingCounts:
     assignment); scorer "host_dp" (the native host DP) or the
     pairhmm_batch.scorer_name of the kernel or plain twin that ran.
     shortcut_pairs counts the jobs (read, haplotype, anchor) that the naive
-    shortcuts resolved before any scorer, from either source."""
+    shortcuts resolved before any scorer, from either source.
+    tied_reads_credited counts the tied reads of read assignment that CSR's
+    allele depth credited to an allele (core/csr/facets.py
+    allele_support_context), a read once for each allele it was credited to."""
 
     job_sets: Counter = field(default_factory=Counter)
     pairs: Counter = field(default_factory=Counter)
     shortcut_pairs: int = 0
+    tied_reads_credited: int = 0
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False,
                                   compare=False)
 
@@ -84,6 +88,10 @@ class RoutingCounts:
     def record_shortcuts(self, pairs: int) -> None:
         with self._lock:
             self.shortcut_pairs += pairs
+
+    def record_tied_credits(self, reads: int) -> None:
+        with self._lock:
+            self.tied_reads_credited += reads
 
     def _total(self, counter: Counter, host: bool) -> int:
         return sum(v for (_, scorer), v in counter.items()
@@ -110,6 +118,7 @@ class RoutingCounts:
             self.job_sets.clear()
             self.pairs.clear()
             self.shortcut_pairs = 0
+            self.tied_reads_credited = 0
 
 
 ROUTING = RoutingCounts()

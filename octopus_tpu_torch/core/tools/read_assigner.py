@@ -28,22 +28,24 @@ class Assignment:
     hap_of_read: np.ndarray      # (n_reads,) haplotype index, -1 ambiguous
     support: dict[int, np.ndarray]  # hap -> read indices
     log_likelihoods: np.ndarray | None = None  # (n_reads,) best-hap lnL
+    # (n_unique, n_reads) bool, rows in `support`'s key order: the
+    # haplotypes within the margin of each read's best (its tie set; more
+    # than one row for an ambiguous read), as the reference keeps an
+    # AmbiguousRead's haplotypes (read_assigner.hpp:63-91)
+    ties: np.ndarray | None = None
 
 
 def _assignment_from_matrix(lnL: np.ndarray, unique_haps: list[int],
                             ambiguous_margin: float = 1e-9) -> Assignment:
     """(n_unique, n_reads) likelihood matrix -> Assignment (argmax with
-    tie -> ambiguous policy)."""
+    tie -> ambiguous policy; each read's tie set kept)."""
     best = np.argmax(lnL, axis=0)
-    sorted_l = np.sort(lnL, axis=0)
-    ambiguous = (len(unique_haps) > 1) & (
-        sorted_l[-1] - sorted_l[-2] <= ambiguous_margin) \
-        if len(unique_haps) > 1 else np.zeros(lnL.shape[1], bool)
-    hap_of_read = np.asarray([unique_haps[b] for b in best])
-    hap_of_read[ambiguous] = -1
+    ties = (lnL.max(axis=0)[None, :] - lnL) <= ambiguous_margin
+    hap_of_read = np.asarray(unique_haps, np.int64)[best]
+    hap_of_read[ties.sum(axis=0) > 1] = -1
     support = {h: np.flatnonzero(hap_of_read == h) for h in unique_haps}
-    best_lnl = lnL[best, np.arange(lnL.shape[1])] if lnL.size else np.zeros(0)
-    return Assignment(hap_of_read, support, best_lnl)
+    best_lnl = lnL[best, np.arange(lnL.shape[1])]
+    return Assignment(hap_of_read, support, best_lnl, ties)
 
 
 def _assignment_model_config(scoring: LikelihoodConfig | None = None

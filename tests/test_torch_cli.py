@@ -6,7 +6,9 @@ lines must be identical, and the headers too except lines carrying a date
 or a command line. The reference CLI pins its host paths below 1 Mb by
 writing OCTOPUS_TPU_HOST_HMM_MAX and OCTOPUS_TPU_HOST_LATENTS into the
 environment and leaving them there; the port reads the first, so both are
-cleared before every port run.
+cleared before every port run. The reference's records are made under
+octopus's rule for tied reads (`reference_tie_rule`), which the port
+follows and the JAX package does not.
 """
 
 import filecmp
@@ -17,6 +19,7 @@ from pathlib import Path
 
 import pytest
 
+import reference_tie_rule as tie_rule
 from octopus_tpu import cli as ref_cli
 from octopus_tpu_torch import cli, run
 from octopus_tpu_torch.core.likelihood import likelihood_array as la
@@ -40,7 +43,8 @@ def reference_vcf(sample):
     out = str(d / "reference.vcf")
     saved = {k: os.environ.get(k) for k in PINNED}
     try:
-        assert ref_cli.main(["-R", fa, "-I", bam, "-o", out]) == 0
+        with tie_rule.applied():
+            assert ref_cli.main(["-R", fa, "-I", bam, "-o", out]) == 0
     finally:
         for k, v in saved.items():
             if v is None:
@@ -153,7 +157,8 @@ def run_reference(sample, name, *extra):
     out = str(d / name)
     saved = {k: os.environ.get(k) for k in PINNED}
     try:
-        assert ref_cli.main(["-R", fa, "-I", bam, "-o", out, *extra]) == 0
+        with tie_rule.applied():
+            assert ref_cli.main(["-R", fa, "-I", bam, "-o", out, *extra]) == 0
     finally:
         for k, v in saved.items():
             if v is None:
@@ -205,8 +210,9 @@ def test_population_caller_on_one_sample_writes_the_reference_records(
     want = str(d / "reference_population.vcf")
     saved = {k: os.environ.get(k) for k in PINNED}
     try:
-        assert ref_cli.main(["-R", fa, "-I", bam, "-o", want,
-                             "--caller", "population"]) == 0
+        with tie_rule.applied():
+            assert ref_cli.main(["-R", fa, "-I", bam, "-o", want,
+                                 "--caller", "population"]) == 0
     finally:
         for k, v in saved.items():
             if v is None:

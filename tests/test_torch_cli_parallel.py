@@ -4,7 +4,8 @@ A simulated 24 kb diploid at 30x, called over six 4 kb regions (one window
 each), on the CPU:
 
 * the process pool (`--threads 4`) writes the serial port run's record
-  lines and the reference CLI's `--threads 4` lines; with
+  lines and the reference CLI's `--threads 4` lines (made under octopus's
+  rule for tied reads, `reference_tie_rule`, in its workers too); with
   OCTOPUS_TPU_DEFER_HEAVY_AT=1 the workers hand windows back to the parent
   and the records stay the same;
 * two port processes sharing a run through `--work-queue --num-shards 2`
@@ -23,6 +24,7 @@ from pathlib import Path
 
 import pytest
 
+import reference_tie_rule as tie_rule
 from octopus_tpu import cli as ref_cli
 from octopus_tpu_torch import cli, run
 from octopus_tpu_torch.utils.synthetic import simulate_diploid
@@ -74,8 +76,9 @@ def reference_threads(sample):
     out = str(d / "reference_threads.vcf")
     saved = {k: os.environ.get(k) for k in PINNED}
     try:
-        assert ref_cli.main(["-R", fa, "-I", bam, "-o", out, *REGIONS,
-                             "--threads", "4"]) == 0
+        with tie_rule.applied():        # the pool's workers take it too
+            assert ref_cli.main(["-R", fa, "-I", bam, "-o", out, *REGIONS,
+                                 "--threads", "4"]) == 0
     finally:
         for k, v in saved.items():
             if v is None:

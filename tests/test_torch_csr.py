@@ -3,7 +3,8 @@
 The same simulated reads are called by both packages' individual callers
 (on the CPU); then, call by call, read assignment (`assign_reads_grouped`),
 the measures (`compute_measures` over facet bundles) and the threshold
-filter's decision must be identical.
+filter's decision must be identical, the reference's made under octopus's
+rule for tied reads (`reference_tie_rule`), which the port follows.
 """
 
 import dataclasses
@@ -11,6 +12,7 @@ import dataclasses
 import numpy as np
 import pytest
 
+import reference_tie_rule as tie_rule
 from octopus_tpu import run as ref_run
 from octopus_tpu.basics.reads import make_read_batch as ref_make_read_batch
 from octopus_tpu.core.callers.individual import CallerConfig as RefConfig
@@ -89,37 +91,49 @@ def test_assign_reads_grouped_equals_the_reference(both):
     got = assign_reads_grouped(jobs[1], scoring=la.LikelihoodConfig(
         device="cpu", host_hmm_max=0))
     assert la.ROUTING.job_sets[("assignment", "pairhmm_plain")] > 0
-    want = ref_assign_grouped(jobs[0])
+    with tie_rule.applied():
+        want = ref_assign_grouped(jobs[0])
     assert len(got) == len(want) > 0
+    tied = 0
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.hap_of_read, w.hap_of_read)
         np.testing.assert_array_equal(g.log_likelihoods, w.log_likelihoods)
         assert sorted(g.support) == sorted(w.support)
+        # each read's tie set, the haplotypes within the margin of its best
+        assert [tuple(np.flatnonzero(g.ties[:, r]))
+                for r in range(len(g.hap_of_read))] == w.tie_haplotypes
+        tied += int((g.hap_of_read < 0).sum())
+    assert tied > 0
+
+
+def measure_rows(module, side, n, compute, report, csr):
+    """(measures, filters) of each call of one side."""
+    reference, batch, calls = side
+    facet_of_call, phase_len = bundles(module, side, n)
+    rows = []
+    for call in calls:
+        lo = max(int(call.begin) - 120, 0)
+        hi = min(int(call.end) + 120, n)
+        m = compute(call, batch, ref_codes=reference.fetch_codes(
+            "chr1", lo, hi), ref_begin=lo,
+            pipe_report=report(n_raw=len(batch), n_downsampled=len(batch)),
+            reads_by_sample=[batch], facets=facet_of_call[id(call)],
+            phase_length=phase_len[id(call)])
+        rows.append((m, csr.classify(m)))
+    return rows
 
 
 def test_measures_and_threshold_filter_equal_the_reference(both):
+    """The reference's side under octopus's rule for tied reads
+    (`reference_tie_rule`), which the port follows."""
     sides, n = both
     misses = measures.FACET_MISSES
-    out = []
-    for module, side, compute, report, csr in (
-            (ref_run, sides[0], ref_measures, RefReport, RefThreshold()),
-            (run, sides[1], measures.compute_measures, ReadPipeReport,
-             ThresholdFilter())):
-        reference, batch, calls = side
-        facet_of_call, phase_len = bundles(module, side, n)
-        rows = []
-        for call in calls:
-            lo = max(int(call.begin) - 120, 0)
-            hi = min(int(call.end) + 120, n)
-            m = compute(call, batch, ref_codes=reference.fetch_codes(
-                "chr1", lo, hi), ref_begin=lo,
-                pipe_report=report(n_raw=len(batch),
-                                   n_downsampled=len(batch)),
-                reads_by_sample=[batch], facets=facet_of_call[id(call)],
-                phase_length=phase_len[id(call)])
-            rows.append((m, csr.classify(m)))
-        out.append(rows)
+    with tie_rule.applied():
+        want = measure_rows(ref_run, sides[0], n, ref_measures, RefReport,
+                            RefThreshold())
+    got = measure_rows(run, sides[1], n, measures.compute_measures,
+                       ReadPipeReport, ThresholdFilter())
     assert measures.FACET_MISSES == misses
-    assert out[1] == out[0]
-    assert any(filters for _, filters in out[0]) or all(
-        "AD" in m for m, _ in out[0])
+    assert got == want
+    assert any(filters for _, filters in want) or all(
+        "AD" in m for m, _ in want)

@@ -14,7 +14,9 @@ line, with the reference package's on the same input:
 
 The reference CLI pins OCTOPUS_TPU_HOST_HMM_MAX and
 OCTOPUS_TPU_HOST_LATENTS in the environment below 1 Mb; they are restored
-after each reference run and cleared before each port run.
+after each reference run and cleared before each port run. The reference
+runs under octopus's rule for tied reads (`reference_tie_rule`), which the
+port follows and the JAX package does not.
 """
 
 import os
@@ -23,6 +25,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+import reference_tie_rule as tie_rule
 from octopus_tpu import cli as ref_cli
 from octopus_tpu_torch import cli, run
 from octopus_tpu_torch.basics.reads import FLAG_REVERSE, make_read_batch
@@ -47,7 +50,8 @@ def lines(path):
 def reference_main(argv):
     saved = {k: os.environ.get(k) for k in PINNED}
     try:
-        assert ref_cli.main(argv) == 0
+        with tie_rule.applied():
+            assert ref_cli.main(argv) == 0
     finally:
         for k, v in saved.items():
             if v is None:

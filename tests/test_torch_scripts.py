@@ -10,7 +10,9 @@ the CPU:
 * train_forest --synthetic at 40 kb, a clean and a noisy replicate: the
   same trees and the same votes on both measure tables.
 
-The reference CLI pins its host paths below 1 Mb by leaving
+The originals run under octopus's rule for tied reads
+(`reference_tie_rule`), which the port follows and the JAX package does
+not. The reference CLI pins its host paths below 1 Mb by leaving
 OCTOPUS_TPU_HOST_HMM_MAX and OCTOPUS_TPU_HOST_LATENTS in the environment;
 both are cleared before every port run.
 """
@@ -22,6 +24,8 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+
+import reference_tie_rule as tie_rule
 
 from octopus_tpu_torch import cli
 from octopus_tpu_torch.scripts import (filter_assigned_reads, long_phase,
@@ -84,8 +88,9 @@ def records(path):
 def test_long_phase_writes_the_originals_records(sample, tmp_path, unpinned):
     _, fa, bam = sample
     want, got = tmp_path / "ref.vcf", tmp_path / "port.vcf"
-    assert original("long_phase").main(["-R", fa, "-I", bam,
-                                        "-o", str(want)]) == 0
+    with tie_rule.applied():
+        assert original("long_phase").main(["-R", fa, "-I", bam,
+                                            "-o", str(want)]) == 0
     unpinned()
     assert long_phase.main(["-R", fa, "-I", bam, "-o", str(got),
                             "--device", "cpu"]) == 0
@@ -155,8 +160,9 @@ def test_train_forest_synthetic_trains_the_originals_forest(tmp_path,
                              ("port", train_forest, ["--device", "cpu"])):
         unpinned()
         out, csv = tmp_path / f"{name}.npz", tmp_path / f"{name}.csv"
-        assert mod.main([*argv, "-o", str(out), "--csv", str(csv),
-                         *extra]) == 0
+        with tie_rule.applied():
+            assert mod.main([*argv, "-o", str(out), "--csv", str(csv),
+                             *extra]) == 0
         table = np.loadtxt(csv, delimiter=",", skiprows=1)
         runs[name] = (Forest.load(str(out)), table[:, :-1], table[:, -1],
                       csv.read_text().splitlines()[0])

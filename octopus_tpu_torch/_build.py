@@ -5,7 +5,8 @@ Three kinds, all built from the sources in ``csrc/`` into
 
 * the host C++ extension (``csrc/octopus_native.cpp``, built with g++ and
   loaded as the module ``octopus_tpu_torch._native``): tandem scans, error
-  model tables, CIGAR scanning, assembly and the banded flank DP;
+  model tables, CIGAR scanning, assembly, a populate's anchor jobs and the
+  banded flank DP;
 * the VB engines' host arithmetic (``csrc/vb_host.cpp``, g++, a plain C
   interface loaded with ctypes by ``core/models/vb_math.py``);
 * the CUDA kernels (``csrc/*.cu``, built with nvcc into a shared library

@@ -75,8 +75,10 @@ class HaplotypeKmerIndex:
         max_positions: int = MAX_MAPPING_POSITIONS,
     ) -> tuple[np.ndarray, np.ndarray]:
         """Flat (read_index, begin) anchor pairs, grouped by read with
-        begins ascending within each read — the loop-free form
-        `_populate_sample` consumes directly."""
+        begins ascending within each read — the loop-free form that
+        `likelihood_array._gather_jobs` consumes where the host extension
+        (whose `gather_anchor_jobs` computes the same anchors) is
+        missing."""
         n_reads = len(read_offsets) - 1
         empty = (np.zeros(0, np.int64), np.zeros(0, np.int64))
         if self.n_kmers == 0 or len(read_hashes_flat) == 0:

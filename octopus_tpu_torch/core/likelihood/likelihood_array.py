@@ -8,7 +8,10 @@ in one `pairhmm_scores` launch on `LikelihoodConfig.device`.
 
 Per window:
 1. per-haplotype penalty tracks from the error models (host numpy);
-2. k-mer anchor candidates per (read, haplotype) (vectorised bincount joins);
+2. the (haplotype, read, anchor) jobs (`_gather_jobs`): the k-mer anchors
+   of every read on every haplotype, each read's original offset, the
+   band's range rule, in one call of the host extension
+   (`gather_anchor_jobs`; a NumPy form where a CPU run lacks it);
 3. the reference's naive shortcuts (exact match / single mismatch with gap
    checks, pair_hmm.hpp:278-319) evaluated for ALL candidate positions at
    once with suffix-equality cumulative products — the large majority of
@@ -50,12 +53,17 @@ from .error_models import (
     RepeatBasedSnvErrorModel,
     make_error_models,
 )
-from .kmer_mapper import HaplotypeKmerIndex, read_kmer_hashes
+from .kmer_mapper import (
+    K,
+    MAX_MAPPING_POSITIONS,
+    HaplotypeKmerIndex,
+    read_kmer_hashes,
+)
 from .pairhmm_batch import PAD_CODE, pairhmm_scores, scorer_name
 
-# process-wide memos for per-haplotype derived state (penalty tracks, k-mer
-# indices), keyed by sequence content; FIFO-capped. Read-only values, safe
-# to share across threads/windows.
+# process-wide memos for per-haplotype derived state (penalty tracks, and
+# the k-mer indices of the NumPy job gathering), keyed by sequence content;
+# FIFO-capped. Read-only values, safe to share across threads/windows.
 _PENALTY_CACHE: dict = {}
 _KMER_INDEX_CACHE: dict = {}
 _CACHE_MAX = 8192
@@ -71,12 +79,16 @@ class RoutingCounts:
     shortcuts resolved before any scorer, from either source.
     tied_reads_credited counts the tied reads of read assignment that CSR's
     allele depth credited to an allele (core/csr/facets.py
-    allele_support_context), a read once for each allele it was credited to."""
+    allele_support_context), a read once for each allele it was credited to.
+    native_gathers counts the calls of the host extension's
+    gather_anchor_jobs, one a populate's sample or a pad group of
+    assignment blocks."""
 
     job_sets: Counter = field(default_factory=Counter)
     pairs: Counter = field(default_factory=Counter)
     shortcut_pairs: int = 0
     tied_reads_credited: int = 0
+    native_gathers: int = 0
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False,
                                   compare=False)
 
@@ -92,6 +104,10 @@ class RoutingCounts:
     def record_tied_credits(self, reads: int) -> None:
         with self._lock:
             self.tied_reads_credited += reads
+
+    def record_native_gather(self) -> None:
+        with self._lock:
+            self.native_gathers += 1
 
     def _total(self, counter: Counter, host: bool) -> int:
         return sum(v for (_, scorer), v in counter.items()
@@ -119,6 +135,7 @@ class RoutingCounts:
             self.pairs.clear()
             self.shortcut_pairs = 0
             self.tied_reads_credited = 0
+            self.native_gathers = 0
 
 
 ROUTING = RoutingCounts()
@@ -202,6 +219,127 @@ class HaplotypePenalties:
     snv_prior_rev: np.ndarray | None
 
 
+def _kmer_index(codes: np.ndarray) -> HaplotypeKmerIndex:
+    key = (len(codes), zlib.crc32(codes.tobytes()))
+    hit = _KMER_INDEX_CACHE.get(key)
+    if hit is not None:
+        return hit
+    idx = HaplotypeKmerIndex(codes)
+    if len(_KMER_INDEX_CACHE) >= _CACHE_MAX:
+        _KMER_INDEX_CACHE.pop(next(iter(_KMER_INDEX_CACHE)))
+    _KMER_INDEX_CACHE[key] = idx
+    return idx
+
+
+def _gather_native(device):
+    """The host extension for `_gather_jobs`: required on a card, None on a
+    CPU run that cannot build it."""
+    return require_native() if device.type == "cuda" else load_native()
+
+
+def _gather_jobs(device, seq, seq_offsets, original, haplotypes, read_base,
+                 hap_base, need, pad, fault):
+    """The (haplotype, read, anchor) jobs of groups of reads against groups
+    of haplotypes: reads read_base[g]:read_base[g + 1] against haplotypes
+    hap_base[g]:hap_base[g + 1].
+
+    seq, seq_offsets: the reads' flat base codes; original: each read's
+    offset on its group's haplotypes; need: None, or an (n_haplotypes,
+    n_reads) bool mask of the pairs still to score (a haplotype with none
+    is skipped). A read's anchors are the k-mer mapper's best begins (at
+    most MAX_MAPPING_POSITIONS, ascending) and its original offset; a job
+    is kept where pad <= begin and begin + length <= haplotype length, and
+    a needed read left without one is shifted into range. Jobs come
+    haplotype by haplotype: the kept anchors by read, then the kept
+    original offsets, then the shifted reads. Returns int64 (job_hap,
+    job_read, job_pos), global indices; raises ShortHaplotypeError(
+    fault(h, r)) at the first read that no position fits."""
+    native = _gather_native(device)
+    if native is not None:
+        hap_offsets = np.zeros(len(haplotypes) + 1, np.int64)
+        np.cumsum([len(h) for h in haplotypes], out=hap_offsets[1:])
+        c = np.ascontiguousarray
+        hap, read, pos, bad = native.gather_anchor_jobs(
+            c(seq, np.uint8), c(seq_offsets, np.int64), c(original, np.int64),
+            c(np.concatenate(haplotypes) if haplotypes else np.zeros(0),
+              np.uint8),
+            hap_offsets, c(read_base, np.int64), c(hap_base, np.int64),
+            b"" if need is None else c(need, np.uint8), int(pad), K,
+            MAX_MAPPING_POSITIONS)
+        ROUTING.record_native_gather()
+        if bad is not None:
+            raise ShortHaplotypeError(fault(*bad))
+        return (np.frombuffer(hap, np.int64), np.frombuffer(read, np.int64),
+                np.frombuffer(pos, np.int64))
+    hashes_flat, hash_offsets = read_kmer_hashes(seq, seq_offsets)
+    lens = np.diff(seq_offsets)
+    jh_parts: list[np.ndarray] = []
+    jr_parts: list[np.ndarray] = []
+    jp_parts: list[np.ndarray] = []
+    for g in range(len(read_base) - 1):
+        r0, r1 = int(read_base[g]), int(read_base[g + 1])
+        ho = hash_offsets[r0:r1 + 1]
+        local_hashes = hashes_flat[ho[0]:ho[-1]]
+        local_offsets = ho - ho[0]
+        local_orig = original[r0:r1]
+        local_lens = lens[r0:r1]
+        nr = r1 - r0
+        if nr == 0:
+            continue
+        loc_reads = np.arange(nr)
+        for h in range(int(hap_base[g]), int(hap_base[g + 1])):
+            hap_len = len(haplotypes[h])
+            # need_h[r] = read r still needs scoring against h (no cache hit)
+            need_h = None if need is None else need[h, r0:r1]
+            if need_h is not None and not need_h.any():
+                # fully cached haplotype (beam prune rounds re-score
+                # survivors every round): skip anchor mapping and job
+                # assembly outright
+                continue
+            read_of, begin = _kmer_index(haplotypes[h]).map_reads_flat(
+                local_hashes, local_offsets)
+            # ensure each read's original mapped position is a candidate
+            M = max(hap_len, int(local_orig.max()) + 1) + 2
+            have = np.isin(loc_reads * M + local_orig, read_of * M + begin)
+            missing = np.flatnonzero(~have)
+            if len(missing):
+                read_of = np.concatenate([read_of, missing])
+                begin = np.concatenate([begin, local_orig[missing]])
+            if need_h is not None:
+                sel = need_h[read_of]
+                read_of, begin = read_of[sel], begin[sel]
+            # the band needs pad bases of LEFT window slack; the RIGHT side
+            # may overrun the haplotype end — _device_scores neutral-fills
+            # overflow cells (N bases, stiff gaps), so a read ending at the
+            # haplotype (= contig) end still scores its true alignment
+            # instead of being anchor-shifted out of band (which floored
+            # every read at the mismap cap)
+            ok = (begin >= pad) & (begin + local_lens[read_of] <= hap_len)
+            # reads needing scoring with zero in-range candidates: shift the
+            # original position minimally into range
+            cnt_ok = np.bincount(read_of[ok], minlength=nr)
+            none = cnt_ok == 0
+            none_r = np.flatnonzero(none if need_h is None else need_h & none)
+            read_of, begin = read_of[ok], begin[ok]
+            if len(none_r):
+                pos = np.maximum(local_orig[none_r], pad)
+                over = pos + local_lens[none_r] - hap_len
+                pos = np.where(over > 0, pos - over, pos)
+                bad = (pos < pad) | (pos + local_lens[none_r] > hap_len)
+                if bad.any():
+                    raise ShortHaplotypeError(
+                        fault(h, r0 + int(none_r[np.argmax(bad)])))
+                read_of = np.concatenate([read_of, none_r])
+                begin = np.concatenate([begin, pos])
+            jh_parts.append(np.full(len(read_of), h, np.int64))
+            jr_parts.append(read_of.astype(np.int64) + r0)
+            jp_parts.append(begin.astype(np.int64))
+    empty = np.zeros(0, np.int64)
+    return (np.concatenate(jh_parts) if jh_parts else empty,
+            np.concatenate(jr_parts) if jr_parts else empty,
+            np.concatenate(jp_parts) if jp_parts else empty)
+
+
 class HaplotypeLikelihoodArray:
     """Computes and stores per-sample (H, R) log-likelihood matrices.
 
@@ -252,7 +390,6 @@ class HaplotypeLikelihoodArray:
                 self._haplotype_penalties(h, None if substitution_masks is None else substitution_masks[i])
                 for i, h in enumerate(haplotypes)
             ]
-            indices = [self._kmer_index(h) for h in haplotypes]
             if flank_state is not None and flank_state.lhs_flank <= 0 \
                     and flank_state.rhs_flank <= 0:
                 flank_state = None
@@ -275,7 +412,7 @@ class HaplotypeLikelihoodArray:
         self.likelihoods = []
         for batch in reads_by_sample:
             self.likelihoods.append(
-                self._populate_sample(batch, haplotypes, penalties, indices,
+                self._populate_sample(batch, haplotypes, penalties,
                                       haplotype_begin, flank_state, pad,
                                       cache, hap_keys)
             )
@@ -285,18 +422,6 @@ class HaplotypeLikelihoodArray:
         return self.likelihoods[sample_idx]
 
     # -- internals ---------------------------------------------------------
-
-    @staticmethod
-    def _kmer_index(codes: np.ndarray) -> HaplotypeKmerIndex:
-        key = (len(codes), zlib.crc32(codes.tobytes()))
-        hit = _KMER_INDEX_CACHE.get(key)
-        if hit is not None:
-            return hit
-        idx = HaplotypeKmerIndex(codes)
-        if len(_KMER_INDEX_CACHE) >= _CACHE_MAX:
-            _KMER_INDEX_CACHE.pop(next(iter(_KMER_INDEX_CACHE)))
-        _KMER_INDEX_CACHE[key] = idx
-        return idx
 
     def _haplotype_penalties(self, codes: np.ndarray, subst_mask) -> HaplotypePenalties:
         # penalty tracks depend only on (error model, sequence, subst mask):
@@ -324,7 +449,7 @@ class HaplotypeLikelihoodArray:
         _PENALTY_CACHE[key] = result
         return result
 
-    def _populate_sample(self, batch, haplotypes, penalties, indices,
+    def _populate_sample(self, batch, haplotypes, penalties,
                          hap_begin, flank_state, pad, cache=None,
                          hap_keys=None):
         n_reads = len(batch)
@@ -333,13 +458,13 @@ class HaplotypeLikelihoodArray:
         if n_reads == 0:
             return np.zeros((H, 0), dtype=np.float64)
         with timers.phase("populate_jobs"):
-            hashes_flat, hash_offsets = read_kmer_hashes(batch.seq, batch.seq_offsets)
             lens = batch.lengths()
             original = np.maximum(batch.begins - hap_begin, 0)
             is_rev = batch.is_reverse()
 
             read_keys = None
             cached_pairs = None
+            need = None
             if cache is not None:
                 read_keys = [
                     (int(batch.begins[r]), int(lens[r]), int(batch.mapq[r]),
@@ -349,79 +474,22 @@ class HaplotypeLikelihoodArray:
                     for r in range(n_reads)
                 ]
                 cached_pairs = set()
-
-            # gather candidate jobs: (hap, read, position) — loop-free per
-            # haplotype (the per-pair python loop was the top host cost at
-            # whole-genome scale)
-            jh_parts: list[np.ndarray] = []
-            jr_parts: list[np.ndarray] = []
-            jp_parts: list[np.ndarray] = []
-            all_reads = np.arange(n_reads)
-            for h in range(H):
-                hap_len = len(haplotypes[h])
-                # need[r] = read r still needs scoring against h (no cache hit)
-                need = np.ones(n_reads, bool)
-                if cache is not None:
+                # need[h, r] = read r still needs scoring against h
+                need = np.ones((H, n_reads), bool)
+                for h in range(H):
                     hk = hap_keys[h]
                     for r in range(n_reads):
                         hit = cache.get((hk, read_keys[r]))
                         if hit is not None:
                             out[h, r] = hit
                             cached_pairs.add((h, r))
-                            need[r] = False
-                    if not need.any():
-                        # fully cached haplotype (beam prune rounds re-score
-                        # survivors every round): skip anchor mapping and job
-                        # assembly outright — the dominant host cost on deep
-                        # dense windows
-                        continue
-                read_of, begin = indices[h].map_reads_flat(hashes_flat,
-                                                           hash_offsets)
-                # ensure each read's original mapped position is a candidate
-                M = max(hap_len, int(original.max()) + 1 if n_reads else 1) + 2
-                have_orig = np.isin(all_reads * M + original,
-                                    read_of * M + begin)
-                missing = np.flatnonzero(~have_orig)
-                if len(missing):
-                    read_of = np.concatenate([read_of, missing])
-                    begin = np.concatenate([begin, original[missing]])
-                if cache is not None:
-                    sel = need[read_of]
-                    read_of, begin = read_of[sel], begin[sel]
-                # the band needs pad bases of LEFT window slack; the RIGHT side
-                # may overrun the haplotype end — _device_scores neutral-fills
-                # overflow cells (N bases, stiff gaps), so a read ending at the
-                # haplotype (= contig) end still scores its true alignment
-                # instead of being anchor-shifted out of band (which floored
-                # every read at the mismap cap)
-                ok = (begin >= pad) & (begin + lens[read_of] <= hap_len)
-                # reads needing scoring with zero in-range candidates: shift the
-                # original position minimally into range
-                cnt_ok = np.bincount(read_of[ok], minlength=n_reads)
-                none_r = np.flatnonzero(need & (cnt_ok == 0))
-                read_of, begin = read_of[ok], begin[ok]
-                if len(none_r):
-                    pos = np.maximum(original[none_r], pad)
-                    over = pos + lens[none_r] - hap_len
-                    pos = np.where(over > 0, pos - over, pos)
-                    bad = (pos < pad) | (pos + lens[none_r] > hap_len)
-                    if bad.any():
-                        r = int(none_r[np.argmax(bad)])
-                        raise ShortHaplotypeError(
-                            f"haplotype {h} too short for read {r} "
-                            f"(len {lens[r]}, hap {hap_len})"
-                        )
-                    read_of = np.concatenate([read_of, none_r])
-                    begin = np.concatenate([begin, pos])
-                jh_parts.append(np.full(len(read_of), h, np.int64))
-                jr_parts.append(read_of.astype(np.int64))
-                jp_parts.append(begin.astype(np.int64))
-            job_hap = (np.concatenate(jh_parts) if jh_parts
-                       else np.zeros(0, np.int64))
-            job_read = (np.concatenate(jr_parts) if jr_parts
-                        else np.zeros(0, np.int64))
-            job_pos = (np.concatenate(jp_parts) if jp_parts
-                       else np.zeros(0, np.int64))
+                            need[h, r] = False
+
+            job_hap, job_read, job_pos = _gather_jobs(
+                self.device, batch.seq, batch.seq_offsets, original,
+                haplotypes, np.array([0, n_reads]), np.array([0, H]), need,
+                pad, lambda h, r: (f"haplotype {h} too short for read {r} "
+                                   f"(len {lens[r]}, hap {len(haplotypes[h])})"))
 
         # evaluate all jobs grouped by read-length bucket (lengths padded up
         # to the bucket size with PAD_CODE/qual-0, which is score-exact)
@@ -759,7 +827,6 @@ def populate_assignment_blocks(jobs, config: LikelihoodConfig | None = None
             np.cumsum(read_counts, out=read_base[1:])
             haps_g: list = []
             pens: list = []
-            kidx: list = []
             hap_of_job: list[list[int]] = []
             for gi, i in enumerate(group):
                 ids = []
@@ -767,60 +834,21 @@ def populate_assignment_blocks(jobs, config: LikelihoodConfig | None = None
                     ids.append(len(haps_g))
                     haps_g.append(codes)
                     pens.append(arr._haplotype_penalties(codes, mask))
-                    kidx.append(arr._kmer_index(codes))
                 hap_of_job.append(ids)
-            hashes_flat, hash_offsets = read_kmer_hashes(merged.seq,
-                                                         merged.seq_offsets)
+            nh = np.asarray([len(ids) for ids in hap_of_job], np.int64)
+            hap_base = np.zeros(len(group) + 1, np.int64)
+            np.cumsum(nh, out=hap_base[1:])
             lens = merged.lengths()
             job_of_read = np.repeat(np.arange(len(group)), read_counts)
             hb = np.asarray([jobs[i][3] for i in group], np.int64)
             original = np.maximum(merged.begins - hb[job_of_read], 0)
             is_rev = merged.is_reverse()
-            jh_parts, jr_parts, jp_parts = [], [], []
-            for gi, i in enumerate(group):
-                r0, r1 = int(read_base[gi]), int(read_base[gi + 1])
-                ho = hash_offsets[r0:r1 + 1]
-                local_hashes = hashes_flat[ho[0]:ho[-1]]
-                local_offsets = ho - ho[0]
-                local_orig = original[r0:r1]
-                local_lens = lens[r0:r1]
-                nr = r1 - r0
-                loc_reads = np.arange(nr)
-                for hg in hap_of_job[gi]:
-                    hap_len = len(haps_g[hg])
-                    read_of, begin = kidx[hg].map_reads_flat(local_hashes,
-                                                             local_offsets)
-                    M = max(hap_len, int(local_orig.max()) + 1) + 2
-                    have = np.isin(loc_reads * M + local_orig,
-                                   read_of * M + begin)
-                    missing = np.flatnonzero(~have)
-                    if len(missing):
-                        read_of = np.concatenate([read_of, missing])
-                        begin = np.concatenate([begin, local_orig[missing]])
-                    ok = (begin >= pad) & (begin + local_lens[read_of] <= hap_len)
-                    cnt_ok = np.bincount(read_of[ok], minlength=nr)
-                    none_r = np.flatnonzero(cnt_ok == 0)
-                    read_of, begin = read_of[ok], begin[ok]
-                    if len(none_r):
-                        pos = np.maximum(local_orig[none_r], pad)
-                        over = pos + local_lens[none_r] - hap_len
-                        pos = np.where(over > 0, pos - over, pos)
-                        bad = (pos < pad) | (pos + local_lens[none_r] > hap_len)
-                        if bad.any():
-                            raise ShortHaplotypeError(
-                                f"assignment-block haplotype too short "
-                                f"(hap {hap_len}, job {i})")
-                        read_of = np.concatenate([read_of, none_r])
-                        begin = np.concatenate([begin, pos])
-                    jh_parts.append(np.full(len(read_of), hg, np.int64))
-                    jr_parts.append(read_of.astype(np.int64) + r0)
-                    jp_parts.append(begin.astype(np.int64))
-            job_hap = (np.concatenate(jh_parts) if jh_parts
-                       else np.zeros(0, np.int64))
-            job_read = (np.concatenate(jr_parts) if jr_parts
-                        else np.zeros(0, np.int64))
-            job_pos = (np.concatenate(jp_parts) if jp_parts
-                       else np.zeros(0, np.int64))
+            job_hap, job_read, job_pos = _gather_jobs(
+                arr.device, merged.seq, merged.seq_offsets, original, haps_g,
+                read_base, hap_base, None, pad,
+                lambda h, r: (f"assignment-block haplotype too short "
+                              f"(hap {len(haps_g[h])}, "
+                              f"job {group[int(job_of_read[r])]})"))
         job_ln = np.full(len(job_hap), -np.inf, np.float64)
         job_lens = lens[job_read]
         bucket = cfg.length_bucket
@@ -832,9 +860,6 @@ def populate_assignment_blocks(jobs, config: LikelihoodConfig | None = None
                 job_pos[sel], job_lens[sel], None, pad, is_rev)
         # scatter into per-job (n_haps, n_reads) matrices through one flat
         # block buffer (max over candidate anchors per pair)
-        nh = np.asarray([len(ids) for ids in hap_of_job], np.int64)
-        hap_base = np.zeros(len(group) + 1, np.int64)
-        np.cumsum(nh, out=hap_base[1:])
         blk_sizes = nh * read_counts
         blk_base = np.zeros(len(group) + 1, np.int64)
         np.cumsum(blk_sizes, out=blk_base[1:])

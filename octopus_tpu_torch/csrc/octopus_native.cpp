@@ -2254,7 +2254,237 @@ static PyObject* site_read_stats(PyObject*, PyObject* args) {
     return tup;
 }
 
+// The (haplotype, read, anchor) jobs of a populate, as the NumPy form of
+// likelihood_array._gather_jobs gives them, element for element.
+//
+// Groups: reads [read_base[g], read_base[g+1]) against haplotypes
+// [hap_base[g], hap_base[g+1]). For each haplotype of a group, in order:
+// a CSR table of its K-mer positions (hashes with N folded to A, ascending
+// positions within a hash); each needed read's K-mers vote for begin =
+// position - k-mer index (begin >= 0), counted in one vote row over the
+// haplotype's begins that every read reuses and clears through its list of
+// touched begins; the begins with the most votes, ascending, at most
+// max_anchors, are its anchors, and its original offset joins them when
+// they lack it. A job is kept when pad <= begin and begin + length <=
+// hap_len; a needed read left without one is shifted into range (pos =
+// max(original, pad), moved left by its overrun of the haplotype's end).
+// Emitted a haplotype at a time: the kept anchors by read, begins
+// ascending; then the kept original offsets; then the shifted reads.
+struct AnchorJobs {
+    std::vector<int64_t> hap, read, pos;
+    void push(int64_t h, int64_t r, int64_t p) {
+        hap.push_back(h); read.push_back(r); pos.push_back(p);
+    }
+};
+
+// Returns false, with the (haplotype, read) at fault, when a needed read
+// fits no in-range position.
+static bool gather_anchor_jobs_impl(
+        const uint8_t* read_codes, const int64_t* read_offsets,
+        const int64_t* original, int64_t n_reads,
+        const uint8_t* hap_codes, const int64_t* hap_offsets,
+        const int64_t* read_base, const int64_t* hap_base, int64_t n_groups,
+        const uint8_t* need, int64_t pad, int K, int max_anchors,
+        AnchorJobs& out, int64_t& fault_hap, int64_t& fault_read) {
+    const uint32_t n_buckets = 1u << (2 * K);
+    const uint32_t top_shift = 2 * (K - 1);
+    auto fold = [](uint8_t c) -> uint32_t { return c >= 4 ? 0u : c; };
+    // every read's rolling K-mer hashes, flat
+    std::vector<int64_t> hash_off((size_t)n_reads + 1, 0);
+    for (int64_t r = 0; r < n_reads; ++r) {
+        const int64_t len = read_offsets[r + 1] - read_offsets[r];
+        hash_off[r + 1] = hash_off[r] + (len >= K ? len - K + 1 : 0);
+    }
+    std::vector<uint32_t> hashes((size_t)hash_off[n_reads]);
+    for (int64_t r = 0; r < n_reads; ++r) {
+        const uint8_t* s = read_codes + read_offsets[r];
+        const int64_t nk = hash_off[r + 1] - hash_off[r];
+        if (nk == 0) continue;
+        uint32_t h = 0;
+        for (int k = 0; k < K; ++k) h |= fold(s[k]) << (2 * k);
+        uint32_t* dst = hashes.data() + hash_off[r];
+        dst[0] = h;
+        for (int64_t j = 1; j < nk; ++j) {
+            h = (h >> 2) | (fold(s[j + K - 1]) << top_shift);
+            dst[j] = h;
+        }
+    }
+    std::vector<int32_t> table_start(n_buckets + 1), table_fill(n_buckets);
+    std::vector<int32_t> table_pos, votes, touched, best;
+    std::vector<uint32_t> hap_hash;
+    AnchorJobs anchors, originals, shifted;
+    for (int64_t g = 0; g < n_groups; ++g) {
+        const int64_t r0 = read_base[g], r1 = read_base[g + 1];
+        for (int64_t h = hap_base[g]; h < hap_base[g + 1]; ++h) {
+            const uint8_t* need_h = need ? need + h * n_reads : nullptr;
+            bool any = need_h == nullptr;
+            for (int64_t r = r0; r < r1 && !any; ++r) any = need_h[r] != 0;
+            if (!any) continue;
+            const uint8_t* codes = hap_codes + hap_offsets[h];
+            const int64_t hap_len = hap_offsets[h + 1] - hap_offsets[h];
+            const int64_t n_kmers = hap_len >= K ? hap_len - K + 1 : 0;
+            // the haplotype's K-mer table (counting sort: stable)
+            std::fill(table_start.begin(), table_start.end(), 0);
+            table_pos.resize((size_t)n_kmers);
+            hap_hash.resize((size_t)n_kmers);
+            if (n_kmers > 0) {
+                uint32_t hh = 0;
+                for (int k = 0; k < K; ++k) hh |= fold(codes[k]) << (2 * k);
+                hap_hash[0] = hh;
+                for (int64_t p = 1; p < n_kmers; ++p) {
+                    hh = (hh >> 2) | (fold(codes[p + K - 1]) << top_shift);
+                    hap_hash[p] = hh;
+                }
+            }
+            for (int64_t p = 0; p < n_kmers; ++p) ++table_start[hap_hash[p] + 1];
+            for (uint32_t b = 0; b < n_buckets; ++b)
+                table_start[b + 1] += table_start[b];
+            std::copy(table_start.begin(), table_start.end() - 1,
+                      table_fill.begin());
+            for (int64_t p = 0; p < n_kmers; ++p)
+                table_pos[table_fill[hap_hash[p]]++] = (int32_t)p;
+            votes.assign((size_t)n_kmers, 0);
+            anchors.hap.clear(); anchors.read.clear(); anchors.pos.clear();
+            originals.hap.clear(); originals.read.clear(); originals.pos.clear();
+            shifted.hap.clear(); shifted.read.clear(); shifted.pos.clear();
+            for (int64_t r = r0; r < r1; ++r) {
+                if (need_h && !need_h[r]) continue;
+                const int64_t len = read_offsets[r + 1] - read_offsets[r];
+                const int64_t orig = original[r];
+                touched.clear();
+                if (n_kmers > 0) {
+                    const uint32_t* q = hashes.data() + hash_off[r];
+                    const int64_t nk = hash_off[r + 1] - hash_off[r];
+                    for (int64_t j = 0; j < nk; ++j) {
+                        for (int32_t t = table_start[q[j]];
+                             t < table_start[q[j] + 1]; ++t) {
+                            const int64_t b = table_pos[t] - j;
+                            if (b < 0) continue;
+                            if (votes[b]++ == 0) touched.push_back((int32_t)b);
+                        }
+                    }
+                }
+                int32_t most = 0;
+                for (int32_t b : touched) most = std::max(most, votes[b]);
+                best.clear();
+                for (int32_t b : touched) {
+                    if (votes[b] == most) best.push_back(b);
+                    votes[b] = 0;
+                }
+                std::sort(best.begin(), best.end());
+                if ((int)best.size() > max_anchors) best.resize(max_anchors);
+                bool has_orig = false, in_range = false;
+                for (int32_t b : best) {
+                    has_orig |= b == orig;
+                    if (b >= pad && b + len <= hap_len) {
+                        anchors.push(h, r, b);
+                        in_range = true;
+                    }
+                }
+                if (!has_orig && orig >= pad && orig + len <= hap_len) {
+                    originals.push(h, r, orig);
+                    in_range = true;
+                }
+                if (in_range) continue;
+                int64_t p = std::max(orig, pad);
+                const int64_t over = p + len - hap_len;
+                if (over > 0) p -= over;
+                if (p < pad || p + len > hap_len) {
+                    fault_hap = h;
+                    fault_read = r;
+                    return false;
+                }
+                shifted.push(h, r, p);
+            }
+            for (const AnchorJobs* part : {&anchors, &originals, &shifted}) {
+                out.hap.insert(out.hap.end(), part->hap.begin(), part->hap.end());
+                out.read.insert(out.read.end(), part->read.begin(), part->read.end());
+                out.pos.insert(out.pos.end(), part->pos.begin(), part->pos.end());
+            }
+        }
+    }
+    return true;
+}
+
+static PyObject* int64_bytearray(const std::vector<int64_t>& v) {
+    return PyByteArray_FromStringAndSize(
+        reinterpret_cast<const char*>(v.data()),
+        (Py_ssize_t)(v.size() * sizeof(int64_t)));
+}
+
+// gather_anchor_jobs(read_codes: u8, read_offsets: i64 (n_reads+1),
+//                    original: i64 (n_reads), hap_codes: u8,
+//                    hap_offsets: i64 (n_haps+1), read_base: i64
+//                    (n_groups+1), hap_base: i64 (n_groups+1),
+//                    need: u8 (n_haps, n_reads) or empty for all needed,
+//                    pad, K, max_anchors)
+//   -> (job_hap, job_read, job_pos int64-le bytearrays, None), or
+//      (None, None, None, (hap, read)) at the first needed read that no
+//      in-range position fits
+static PyObject* gather_anchor_jobs(PyObject*, PyObject* args) {
+    Py_buffer rc_b, ro_b, or_b, hc_b, ho_b, rb_b, hb_b, need_b;
+    long long pad;
+    int K, max_anchors;
+    if (!PyArg_ParseTuple(args, "y*y*y*y*y*y*y*y*Lii", &rc_b, &ro_b, &or_b,
+                          &hc_b, &ho_b, &rb_b, &hb_b, &need_b, &pad, &K,
+                          &max_anchors))
+        return nullptr;
+    auto release = [&]() {
+        for (Py_buffer* b : {&rc_b, &ro_b, &or_b, &hc_b, &ho_b, &rb_b, &hb_b,
+                             &need_b})
+            PyBuffer_Release(b);
+    };
+    const int64_t n_reads = or_b.len / 8;
+    const int64_t n_haps = ho_b.len / 8 - 1;
+    const int64_t n_groups = rb_b.len / 8 - 1;
+    const int64_t* read_offsets = (const int64_t*)ro_b.buf;
+    const int64_t* hap_offsets = (const int64_t*)ho_b.buf;
+    const int64_t* read_base = (const int64_t*)rb_b.buf;
+    const int64_t* hap_base = (const int64_t*)hb_b.buf;
+    const char* bad = nullptr;
+    if (K < 1 || K > 8 || max_anchors < 0)
+        bad = "K must lie in 1..8 and max_anchors be >= 0";
+    else if (ro_b.len != (n_reads + 1) * 8 || n_haps < 0 || n_groups < 0
+             || hb_b.len != rb_b.len)
+        bad = "offset and group arrays disagree in length";
+    else if (read_offsets[n_reads] > rc_b.len
+             || hap_offsets[n_haps] > hc_b.len)
+        bad = "offsets run past the codes";
+    else if (need_b.len != 0 && need_b.len != n_haps * n_reads)
+        bad = "need must be empty or (n_haps, n_reads)";
+    else if (n_groups > 0 && (read_base[0] < 0 || hap_base[0] < 0
+             || read_base[n_groups] > n_reads || hap_base[n_groups] > n_haps))
+        bad = "groups run past the reads or haplotypes";
+    if (bad) {
+        release();
+        PyErr_SetString(PyExc_ValueError, bad);
+        return nullptr;
+    }
+    AnchorJobs jobs;
+    int64_t fault_hap = -1, fault_read = -1;
+    bool ok;
+    Py_BEGIN_ALLOW_THREADS
+    ok = gather_anchor_jobs_impl(
+        (const uint8_t*)rc_b.buf, read_offsets, (const int64_t*)or_b.buf,
+        n_reads, (const uint8_t*)hc_b.buf, hap_offsets, read_base, hap_base,
+        n_groups, need_b.len ? (const uint8_t*)need_b.buf : nullptr,
+        (int64_t)pad, K, max_anchors, jobs, fault_hap, fault_read);
+    Py_END_ALLOW_THREADS
+    release();
+    if (!ok)
+        return Py_BuildValue("(OOO(LL))", Py_None, Py_None, Py_None,
+                             (long long)fault_hap, (long long)fault_read);
+    PyObject* h = int64_bytearray(jobs.hap);
+    PyObject* r = int64_bytearray(jobs.read);
+    PyObject* p = int64_bytearray(jobs.pos);
+    PyObject* tup = (h && r && p) ? PyTuple_Pack(4, h, r, p, Py_None) : nullptr;
+    Py_XDECREF(h); Py_XDECREF(r); Py_XDECREF(p);
+    return tup;
+}
+
 static PyMethodDef methods[] = {
+    {"gather_anchor_jobs", gather_anchor_jobs, METH_VARARGS,
+     "A populate's (haplotype, read, anchor) jobs -> int64-le bytearrays."},
     {"site_read_stats", site_read_stats, METH_VARARGS,
      "Per-read site support/bq/offset/mismatch/clip stats for measures."},
     {"flank_banded_scores", flank_banded_scores, METH_VARARGS,

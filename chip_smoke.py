@@ -1331,7 +1331,6 @@ def phase_main_path(device="cuda", kb=REGION_KB):
                             ("all_kernel", 0), ("default_gate", 384)):
         config = config_at(host_max)
         la._PENALTY_CACHE.clear()
-        la._KMER_INDEX_CACHE.clear()
         timers.reset()
         pb.COUNTS.reset()
         la.ROUTING.reset()
@@ -1427,7 +1426,6 @@ def phase_cli(device="cuda", kb=CLI_REGION_KB, tmp=None):
                 os.environ.pop(k, None)
             os.environ.update(env)
             la._PENALTY_CACHE.clear()
-            la._KMER_INDEX_CACHE.clear()
             timers.reset()
             for counts in pb.KERNEL_COUNTS.values():
                 counts.reset()
@@ -1689,7 +1687,7 @@ def check_vb(kept, phase):
 
 def reset_counts():
     """Every pair-HMM kernel's counts, the routing and the pool at 0, the
-    likelihood array's caches empty."""
+    likelihood array's penalty cache empty."""
     from octopus_tpu_torch import run
     from octopus_tpu_torch.core.likelihood import likelihood_array as la
     from octopus_tpu_torch.core.likelihood import pairhmm_batch as pb
@@ -1697,7 +1695,6 @@ def reset_counts():
         counts.reset()
     la.ROUTING.reset()
     la._PENALTY_CACHE.clear()
-    la._KMER_INDEX_CACHE.clear()
     run.POOL.reset()
 
 

@@ -6,7 +6,8 @@ Three kinds, all built from the sources in ``csrc/`` into
 * the host C++ extension (``csrc/octopus_native.cpp``, built with g++ and
   loaded as the module ``octopus_tpu_torch._native``): tandem scans, error
   model tables, CIGAR scanning, assembly, a populate's anchor jobs and the
-  banded flank DP;
+  banded flank DP. The port requires it on every device: host modules
+  call it through ``NATIVE`` and have no other form of these loops;
 * the VB engines' host arithmetic (``csrc/vb_host.cpp``, g++, a plain C
   interface loaded with ctypes by ``core/models/vb_math.py``);
 * the CUDA kernels (``csrc/*.cu``, built with nvcc into a shared library
@@ -92,10 +93,7 @@ _native_error: Exception | None = None
 
 
 def load_native():
-    """The host extension module, or None when it cannot be built here.
-
-    Host code keeps its numpy fallbacks for a box without a toolchain; the
-    GPU path calls require_native() instead and never runs without it."""
+    """The host extension module, or None when it cannot be built here."""
     global _native, _native_error
     if _native is None and _native_error is None:
         src = CSRC / "octopus_native.cpp"
@@ -122,17 +120,12 @@ def load_native():
 class LazyNative:
     """The host extension, built and loaded at its first use.
 
-    Truthy when the extension is available; attribute lookups reach the
-    loaded module. Importing a module that holds one starts no build."""
-
-    def __bool__(self) -> bool:
-        return load_native() is not None
+    Attribute lookups reach the loaded module, looked up at each call, or
+    raise require_native()'s error. Importing a module that holds one
+    starts no build."""
 
     def __getattr__(self, name: str):
-        module = load_native()
-        if module is None:
-            raise AttributeError(name)
-        return getattr(module, name)
+        return getattr(require_native(), name)
 
 
 NATIVE = LazyNative()

@@ -158,8 +158,8 @@ class CallerBase:
     def __init__(self, reference, contig: str, config: BaseCallerConfig):
         self.reference = reference
         self.contig = contig
-        if resolve_device(config.device).type == "cuda":
-            require_native()
+        resolve_device(config.device)
+        require_native()
         self.config = dataclasses.replace(
             config, likelihood=dataclasses.replace(config.likelihood,
                                                    device=config.device))

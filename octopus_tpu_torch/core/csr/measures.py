@@ -70,8 +70,8 @@ from ..likelihood.likelihood_array import ShortHaplotypeError
 # none of these and passes through.
 _FACET_DATA_ERRORS = (ShortHaplotypeError, ArithmeticError, LookupError)
 
-# native whole-batch site stats (csrc/octopus_native.cpp:site_read_stats);
-# built at first use, falsy on a host without a toolchain
+# native whole-batch site stats (csrc/octopus_native.cpp:site_read_stats),
+# built at first use
 from ..._build import NATIVE as _native
 
 #: every measure key this module can emit (the reference's 56-measure set)
@@ -202,38 +202,6 @@ def _read_supports(batch: ReadBatch, i: int, begin: int, end: int,
     return False, None, None
 
 
-def _read_mismatches(batch: ReadBatch, i: int, ref_codes, ref_begin: int) -> int:
-    """Aligned-base mismatches of read i against the reference slice."""
-    if ref_codes is None:
-        return 0
-    seq = batch.sequence(i)
-    pos = int(batch.begins[i])
-    q = 0
-    mism = 0
-    for length, op in batch.cigar(i):
-        length = int(length)
-        if op in (cg.M, cg.EQ, cg.X):
-            lo = pos - ref_begin
-            r = ref_codes[max(lo, 0):lo + length]
-            s = seq[q + max(-lo, 0):q + max(-lo, 0) + len(r)]
-            n = min(len(r), len(s))
-            if n > 0:
-                mism += int((r[:n] != s[:n]).sum())
-            pos += length
-            q += length
-        elif op == cg.I:
-            mism += length
-            q += length
-        elif op == cg.D:
-            mism += length
-            pos += length
-        elif op == cg.S:
-            q += length
-        elif op in (cg.NSKIP, cg.P):
-            pos += length
-    return mism
-
-
 def site_context(batch: ReadBatch, begin: int, end: int, alt_codes: np.ndarray,
                  is_insertion: bool, is_deletion: bool,
                  ref_codes=None, ref_begin: int = 0) -> SiteContext:
@@ -258,59 +226,31 @@ def site_context(batch: ReadBatch, begin: int, end: int, alt_codes: np.ndarray,
     ctx.read_lengths = lens.tolist()
     shift_max = _equiv_shift_max(ref_codes, ref_begin, begin, end, alt_codes,
                                  is_insertion, is_deletion)
-    stats = _native_site_stats(over, begin, end, alt_codes, is_insertion,
-                               is_deletion, shift_max, ref_codes, ref_begin)
-    if stats is not None:
-        sup_a, bq_a, off_a, mism_a, clip_a = stats
-        ctx.mismatch_counts = mism_a.tolist()
-        ctx.misaligned = int((mism_a >= 6).sum())
-        ctx.clipped = int(clip_a.sum())
-        alt_sel = sup_a.astype(bool)
-        ctx.alt_depth = int(alt_sel.sum())
-        ctx.alt_mapping_qualities = mq[alt_sel].tolist()
-        ctx.alt_mismatch_counts = mism_a[alt_sel].tolist()
-        ctx.alt_base_qualities = bq_a[alt_sel & (bq_a >= 0)].tolist()
-        off_sel = alt_sel & (off_a >= 0) & (lens > 0)
-        ctx.alt_offsets = list(zip(off_a[off_sel].tolist(),
-                                   lens[off_sel].tolist()))
-        ctx.alt_reverse = int((alt_sel & is_rev).sum())
-        ctx.alt_forward = int((alt_sel & ~is_rev).sum())
-        ctx.dup_alt = int((alt_sel & ((flags & FLAG_DUPLICATE) != 0)).sum())
-        return ctx
-    for i in range(n):
-        sup, bq, off = _read_supports(over, i, begin, end, alt_codes,
-                                      is_insertion, is_deletion, shift_max)
-        mism = _read_mismatches(over, i, ref_codes, ref_begin)
-        ctx.mismatch_counts.append(mism)
-        if mism >= 6:
-            ctx.misaligned += 1
-        cigar = over.cigar(i)
-        if len(cigar) and (cigar[:, 1] == cg.S).any():
-            ctx.clipped += 1
-        if sup:
-            ctx.alt_depth += 1
-            ctx.alt_mapping_qualities.append(float(over.mapq[i]))
-            ctx.alt_mismatch_counts.append(mism)
-            if bq is not None:
-                ctx.alt_base_qualities.append(bq)
-            if off is not None and lens[i] > 0:
-                ctx.alt_offsets.append((int(off), int(lens[i])))
-            if is_rev[i]:
-                ctx.alt_reverse += 1
-            else:
-                ctx.alt_forward += 1
-            if flags[i] & FLAG_DUPLICATE:
-                ctx.dup_alt += 1
+    sup_a, bq_a, off_a, mism_a, clip_a = _native_site_stats(
+        over, begin, end, alt_codes, is_insertion, is_deletion, shift_max,
+        ref_codes, ref_begin)
+    ctx.mismatch_counts = mism_a.tolist()
+    ctx.misaligned = int((mism_a >= 6).sum())
+    ctx.clipped = int(clip_a.sum())
+    alt_sel = sup_a.astype(bool)
+    ctx.alt_depth = int(alt_sel.sum())
+    ctx.alt_mapping_qualities = mq[alt_sel].tolist()
+    ctx.alt_mismatch_counts = mism_a[alt_sel].tolist()
+    ctx.alt_base_qualities = bq_a[alt_sel & (bq_a >= 0)].tolist()
+    off_sel = alt_sel & (off_a >= 0) & (lens > 0)
+    ctx.alt_offsets = list(zip(off_a[off_sel].tolist(),
+                               lens[off_sel].tolist()))
+    ctx.alt_reverse = int((alt_sel & is_rev).sum())
+    ctx.alt_forward = int((alt_sel & ~is_rev).sum())
+    ctx.dup_alt = int((alt_sel & ((flags & FLAG_DUPLICATE) != 0)).sum())
     return ctx
 
 
 def _native_site_stats(over: ReadBatch, begin, end, alt_codes, is_ins,
                        is_del, shift_max, ref_codes, ref_begin):
     """Whole-batch per-read support/mismatch stats via the C++ extension
-    (csrc/octopus_native.cpp:site_read_stats, bit-identical to the
-    python loop above, which remains the golden fallback)."""
-    if not _native:
-        return None
+    (csrc/octopus_native.cpp:site_read_stats: each read's support by
+    _read_supports' rule, its aligned-base mismatches and clipping)."""
     n = len(over)
     ref_bytes = (np.ascontiguousarray(ref_codes, dtype=np.uint8).tobytes()
                  if ref_codes is not None else b"")

@@ -18,11 +18,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from ...utils.tandem import Repeat, extract_exact_tandem_repeats
-from ...basics.sequence import A, C, G, T
-
-# native count_runs hot loop (csrc/octopus_native.cpp); built at first use,
-# falsy on a host without a toolchain (the python fallbacks then run)
+# native penalty tracks (csrc/octopus_native.cpp: snv_priors,
+# indel_penalties), built at first use
 from ..._build import NATIVE as _native
 
 # ---------------------------------------------------------------------------
@@ -72,10 +69,6 @@ INDEL_EXTEND_PENALTIES = {
 DEFAULT_MODEL_LABEL = "PCR-FREE.HISEQ-2500"
 
 
-def _lookup(table: list[int], index: int) -> int:
-    return table[index] if index < len(table) else table[-1]
-
-
 # ---------------------------------------------------------------------------
 # SNV error model
 # ---------------------------------------------------------------------------
@@ -98,92 +91,21 @@ class RepeatBasedSnvErrorModel:
     exempted from caps.
     """
 
-    MAX_PERIOD = 3
-
     def __init__(self, library: str = "PCR-FREE"):
         caps = SNV_PENALTY_CAPS[library.upper()]
-        self._caps = [list(c) for c in caps]
         self._caps_arr = [np.asarray(c, dtype=np.int16) for c in caps]
-        self.max_quality = self._caps[0][0]
+        self.max_quality = caps[0][0]
 
     def evaluate(self, codes: np.ndarray, substitution_mask: np.ndarray | None = None) -> SnvErrorResult:
-        n = len(codes)
-        max_q = self.max_quality
-        if _native and hasattr(_native, "snv_priors"):
-            sub = (np.ascontiguousarray(substitution_mask, np.uint8).tobytes()
-                   if substitution_mask is not None and substitution_mask.any()
-                   else b"")
-            fwd_b, rev_b = _native.snv_priors(
-                np.ascontiguousarray(codes, np.uint8).tobytes(), sub, max_q,
-                *(c.tobytes() for c in self._caps_arr))
-            return SnvErrorResult(
-                np.roll(codes, 1), np.frombuffer(fwd_b, np.int16).copy(),
-                np.roll(codes, -1), np.frombuffer(rev_b, np.int16).copy())
-        fwd = np.full(n, max_q, dtype=np.int16)
-        rev = np.full(n, max_q, dtype=np.int16)
-        repeats = extract_exact_tandem_repeats(codes, 1, self.MAX_PERIOD)
-        # per-period repeat-id masks; the id is a base-sum hash of the motif so
-        # adjacent distinct repeats of the same period break runs
-        period_masks = [np.zeros(n, dtype=np.int16) for _ in range(self.MAX_PERIOD)]
-        for r in repeats:
-            motif_hash = int(codes[r.pos:r.pos + r.period].astype(np.int32).sum()) + r.period + 1
-            period_masks[r.period - 1][r.pos:r.pos + r.length] = motif_hash
-        for period in range(1, self.MAX_PERIOD + 1):
-            mask = period_masks[period - 1]
-            caps = self._caps_arr[period - 1]
-            max_gap = period + 1
-            runs = _count_runs(mask, max_gap)
-            np.minimum(fwd, caps[np.minimum(runs, len(caps) - 1)], out=fwd)
-            runs_rev = _count_runs(mask[::-1], max_gap)[::-1]
-            np.minimum(rev, caps[np.minimum(runs_rev, len(caps) - 1)], out=rev)
-        if substitution_mask is not None and substitution_mask.any():
-            fwd[substitution_mask] = max_q
-            rev[substitution_mask] = max_q
-        fwd_mask = np.roll(codes, 1)
-        rev_mask = np.roll(codes, -1)
-        return SnvErrorResult(fwd_mask, fwd, rev_mask, rev)
-
-
-def _count_runs(mask: np.ndarray, max_gap: int) -> np.ndarray:
-    """For each position, the length of the repeat run that just ended there
-    (0 elsewhere).  Runs survive gaps of zeros up to ``max_gap``; the length is
-    emitted at the first zero after the run and at value-change positions.
-    (Mirrors count_runs in repeat_based_snv_error_model.cpp.)
-    """
-    if _native:
-        raw = _native.count_runs(
-            np.ascontiguousarray(mask, dtype=np.int16).tobytes(), int(max_gap))
-        return np.frombuffer(raw, dtype=np.int32).copy()
-    n = len(mask)
-    out = np.zeros(n, dtype=np.int32)
-    if n == 0:
-        return out
-    prev = mask[0]
-    count = 1 if prev > 0 else 0
-    gap = 0
-    for i in range(1, n):
-        x = mask[i]
-        emitted = 0
-        if x == 0:
-            gap += 1
-            if count > 0:
-                if gap == 1:
-                    if max_gap >= 1:
-                        emitted = count
-                    else:
-                        emitted = count
-                        count = 0
-                elif gap > max_gap:
-                    count = 0
-        elif prev == x:
-            gap = 0
-            count += 1
-        else:
-            prev = x
-            emitted = count
-            count = 1
-        out[i] = emitted
-    return out
+        sub = (np.ascontiguousarray(substitution_mask, np.uint8).tobytes()
+               if substitution_mask is not None and substitution_mask.any()
+               else b"")
+        fwd_b, rev_b = _native.snv_priors(
+            np.ascontiguousarray(codes, np.uint8).tobytes(), sub,
+            self.max_quality, *(c.tobytes() for c in self._caps_arr))
+        return SnvErrorResult(
+            np.roll(codes, 1), np.frombuffer(fwd_b, np.int16).copy(),
+            np.roll(codes, -1), np.frombuffer(rev_b, np.int16).copy())
 
 
 # ---------------------------------------------------------------------------
@@ -205,8 +127,6 @@ class RepeatBasedIndelErrorModel:
     penalties filled in order of increasing repeat length.
     """
 
-    MAX_PERIOD = 5
-
     def __init__(self, model: str = DEFAULT_MODEL_LABEL):
         library, _, sequencer = model.upper().partition(".")
         key = (library, sequencer or "HISEQ-2500")
@@ -223,54 +143,16 @@ class RepeatBasedIndelErrorModel:
         self.default_open = self._di_open[0]
         self.default_extend = self._di_ext[0]
 
-    def _open_penalty(self, motif: np.ndarray, length: int) -> int:
-        period = len(motif)
-        periodicity = length // period
-        if period == 1:
-            if motif[0] in (A, T):
-                return _lookup(self._at_open, periodicity)
-            return _lookup(self._cg_open, periodicity)
-        if period == 2:
-            p = _lookup(self._di_open, periodicity)
-            # CG dinucleotide repeats are extra error-prone
-            s = {int(motif[0]), int(motif[1])}
-            if p > 7 and s == {C, G}:
-                p -= 2
-            return p
-        return _lookup(self._tri_open, periodicity)
-
-    def _extend_penalty(self, motif: np.ndarray, length: int) -> int:
-        period = len(motif)
-        periodicity = length // period
-        if period == 1:
-            return _lookup(self._homo_ext, periodicity)
-        if period == 2:
-            return _lookup(self._di_ext, periodicity)
-        return _lookup(self._tri_ext, periodicity)
-
     def set_penalties(self, codes: np.ndarray) -> IndelErrorResult:
-        n = len(codes)
-        if _native and hasattr(_native, "indel_penalties"):
-            t = lambda xs: np.asarray(xs, np.int16).tobytes()
-            open_b, ext_b = _native.indel_penalties(
-                np.ascontiguousarray(codes, np.uint8).tobytes(),
-                int(self.default_open), int(self.default_extend),
-                t(self._at_open), t(self._cg_open), t(self._di_open),
-                t(self._tri_open), t(self._homo_ext), t(self._di_ext),
-                t(self._tri_ext))
-            return IndelErrorResult(np.frombuffer(open_b, np.int16).copy(),
-                                    np.frombuffer(ext_b, np.int16).copy())
-        gap_open = np.full(n, self.default_open, dtype=np.int16)
-        gap_extend = np.full(n, self.default_extend, dtype=np.int16)
-        repeats = extract_exact_tandem_repeats(codes, 1, self.MAX_PERIOD)
-        repeats.sort(key=lambda r: r.length)
-        for r in repeats:
-            motif = codes[r.pos:r.pos + r.period]
-            opn = self._open_penalty(motif, r.length)
-            span = slice(r.pos, r.pos + r.length)
-            np.minimum(gap_open[span], opn, out=gap_open[span])
-            gap_extend[span] = self._extend_penalty(motif, r.length)
-        return IndelErrorResult(gap_open, gap_extend)
+        t = lambda xs: np.asarray(xs, np.int16).tobytes()
+        open_b, ext_b = _native.indel_penalties(
+            np.ascontiguousarray(codes, np.uint8).tobytes(),
+            int(self.default_open), int(self.default_extend),
+            t(self._at_open), t(self._cg_open), t(self._di_open),
+            t(self._tri_open), t(self._homo_ext), t(self._di_ext),
+            t(self._tri_ext))
+        return IndelErrorResult(np.frombuffer(open_b, np.int16).copy(),
+                                np.frombuffer(ext_b, np.int16).copy())
 
 
 def make_error_models(model: str = DEFAULT_MODEL_LABEL):

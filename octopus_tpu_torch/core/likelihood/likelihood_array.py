@@ -11,7 +11,7 @@ Per window:
 2. the (haplotype, read, anchor) jobs (`_gather_jobs`): the k-mer anchors
    of every read on every haplotype, each read's original offset, the
    band's range rule, in one call of the host extension
-   (`gather_anchor_jobs`; a NumPy form where a CPU run lacks it);
+   (`gather_anchor_jobs`);
 3. the reference's naive shortcuts (exact match / single mismatch with gap
    checks, pair_hmm.hpp:278-319) evaluated for ALL candidate positions at
    once with suffix-equality cumulative products — the large majority of
@@ -19,8 +19,8 @@ Per window:
 4. remaining (read, haplotype, anchor) jobs bucketed by read length and
    scored on the device (small job sets on the host DP); max over anchors
    per pair;
-5. flank-state discounting via the host traceback path for the (few) reads
-   overlapping haplotype flanks;
+5. flank-state discounting for the (few) reads overlapping haplotype
+   flanks, in one call of the host extension (`flank_banded_scores`);
 6. mapping-quality mixture and final clamping
    (haplotype_likelihood_model.cpp:285-303).
 
@@ -42,30 +42,28 @@ import zlib
 
 import numpy as np
 
-from ..._build import load_native, require_native
+from ..._build import NATIVE as _native, require_native
 from ...basics.phred import LN10_DIV_10
 from ...basics.reads import ReadBatch
 from ...device import resolve_device
 from ...utils import timers
-from . import pairhmm_ref as ph
 from .error_models import (
     RepeatBasedIndelErrorModel,
     RepeatBasedSnvErrorModel,
     make_error_models,
 )
-from .kmer_mapper import (
-    K,
-    MAX_MAPPING_POSITIONS,
-    HaplotypeKmerIndex,
-    read_kmer_hashes,
-)
 from .pairhmm_batch import PAD_CODE, pairhmm_scores, scorer_name
 
-# process-wide memos for per-haplotype derived state (penalty tracks, and
-# the k-mer indices of the NumPy job gathering), keyed by sequence content;
-# FIFO-capped. Read-only values, safe to share across threads/windows.
+# the reference's k-mer mapper (src/utils/kmer_mapper.hpp:19-60): a read's
+# K-mers vote for its begins on a haplotype, and up to MAX_MAPPING_POSITIONS
+# best begins become its anchors
+K = 6
+MAX_MAPPING_POSITIONS = 10
+
+# process-wide memo of per-haplotype penalty tracks, keyed by sequence
+# content; FIFO-capped. Read-only values, safe to share across
+# threads/windows.
 _PENALTY_CACHE: dict = {}
-_KMER_INDEX_CACHE: dict = {}
 _CACHE_MAX = 8192
 
 
@@ -219,25 +217,7 @@ class HaplotypePenalties:
     snv_prior_rev: np.ndarray | None
 
 
-def _kmer_index(codes: np.ndarray) -> HaplotypeKmerIndex:
-    key = (len(codes), zlib.crc32(codes.tobytes()))
-    hit = _KMER_INDEX_CACHE.get(key)
-    if hit is not None:
-        return hit
-    idx = HaplotypeKmerIndex(codes)
-    if len(_KMER_INDEX_CACHE) >= _CACHE_MAX:
-        _KMER_INDEX_CACHE.pop(next(iter(_KMER_INDEX_CACHE)))
-    _KMER_INDEX_CACHE[key] = idx
-    return idx
-
-
-def _gather_native(device):
-    """The host extension for `_gather_jobs`: required on a card, None on a
-    CPU run that cannot build it."""
-    return require_native() if device.type == "cuda" else load_native()
-
-
-def _gather_jobs(device, seq, seq_offsets, original, haplotypes, read_base,
+def _gather_jobs(seq, seq_offsets, original, haplotypes, read_base,
                  hap_base, need, pad, fault):
     """The (haplotype, read, anchor) jobs of groups of reads against groups
     of haplotypes: reads read_base[g]:read_base[g + 1] against haplotypes
@@ -254,90 +234,21 @@ def _gather_jobs(device, seq, seq_offsets, original, haplotypes, read_base,
     original offsets, then the shifted reads. Returns int64 (job_hap,
     job_read, job_pos), global indices; raises ShortHaplotypeError(
     fault(h, r)) at the first read that no position fits."""
-    native = _gather_native(device)
-    if native is not None:
-        hap_offsets = np.zeros(len(haplotypes) + 1, np.int64)
-        np.cumsum([len(h) for h in haplotypes], out=hap_offsets[1:])
-        c = np.ascontiguousarray
-        hap, read, pos, bad = native.gather_anchor_jobs(
-            c(seq, np.uint8), c(seq_offsets, np.int64), c(original, np.int64),
-            c(np.concatenate(haplotypes) if haplotypes else np.zeros(0),
-              np.uint8),
-            hap_offsets, c(read_base, np.int64), c(hap_base, np.int64),
-            b"" if need is None else c(need, np.uint8), int(pad), K,
-            MAX_MAPPING_POSITIONS)
-        ROUTING.record_native_gather()
-        if bad is not None:
-            raise ShortHaplotypeError(fault(*bad))
-        return (np.frombuffer(hap, np.int64), np.frombuffer(read, np.int64),
-                np.frombuffer(pos, np.int64))
-    hashes_flat, hash_offsets = read_kmer_hashes(seq, seq_offsets)
-    lens = np.diff(seq_offsets)
-    jh_parts: list[np.ndarray] = []
-    jr_parts: list[np.ndarray] = []
-    jp_parts: list[np.ndarray] = []
-    for g in range(len(read_base) - 1):
-        r0, r1 = int(read_base[g]), int(read_base[g + 1])
-        ho = hash_offsets[r0:r1 + 1]
-        local_hashes = hashes_flat[ho[0]:ho[-1]]
-        local_offsets = ho - ho[0]
-        local_orig = original[r0:r1]
-        local_lens = lens[r0:r1]
-        nr = r1 - r0
-        if nr == 0:
-            continue
-        loc_reads = np.arange(nr)
-        for h in range(int(hap_base[g]), int(hap_base[g + 1])):
-            hap_len = len(haplotypes[h])
-            # need_h[r] = read r still needs scoring against h (no cache hit)
-            need_h = None if need is None else need[h, r0:r1]
-            if need_h is not None and not need_h.any():
-                # fully cached haplotype (beam prune rounds re-score
-                # survivors every round): skip anchor mapping and job
-                # assembly outright
-                continue
-            read_of, begin = _kmer_index(haplotypes[h]).map_reads_flat(
-                local_hashes, local_offsets)
-            # ensure each read's original mapped position is a candidate
-            M = max(hap_len, int(local_orig.max()) + 1) + 2
-            have = np.isin(loc_reads * M + local_orig, read_of * M + begin)
-            missing = np.flatnonzero(~have)
-            if len(missing):
-                read_of = np.concatenate([read_of, missing])
-                begin = np.concatenate([begin, local_orig[missing]])
-            if need_h is not None:
-                sel = need_h[read_of]
-                read_of, begin = read_of[sel], begin[sel]
-            # the band needs pad bases of LEFT window slack; the RIGHT side
-            # may overrun the haplotype end — _device_scores neutral-fills
-            # overflow cells (N bases, stiff gaps), so a read ending at the
-            # haplotype (= contig) end still scores its true alignment
-            # instead of being anchor-shifted out of band (which floored
-            # every read at the mismap cap)
-            ok = (begin >= pad) & (begin + local_lens[read_of] <= hap_len)
-            # reads needing scoring with zero in-range candidates: shift the
-            # original position minimally into range
-            cnt_ok = np.bincount(read_of[ok], minlength=nr)
-            none = cnt_ok == 0
-            none_r = np.flatnonzero(none if need_h is None else need_h & none)
-            read_of, begin = read_of[ok], begin[ok]
-            if len(none_r):
-                pos = np.maximum(local_orig[none_r], pad)
-                over = pos + local_lens[none_r] - hap_len
-                pos = np.where(over > 0, pos - over, pos)
-                bad = (pos < pad) | (pos + local_lens[none_r] > hap_len)
-                if bad.any():
-                    raise ShortHaplotypeError(
-                        fault(h, r0 + int(none_r[np.argmax(bad)])))
-                read_of = np.concatenate([read_of, none_r])
-                begin = np.concatenate([begin, pos])
-            jh_parts.append(np.full(len(read_of), h, np.int64))
-            jr_parts.append(read_of.astype(np.int64) + r0)
-            jp_parts.append(begin.astype(np.int64))
-    empty = np.zeros(0, np.int64)
-    return (np.concatenate(jh_parts) if jh_parts else empty,
-            np.concatenate(jr_parts) if jr_parts else empty,
-            np.concatenate(jp_parts) if jp_parts else empty)
+    hap_offsets = np.zeros(len(haplotypes) + 1, np.int64)
+    np.cumsum([len(h) for h in haplotypes], out=hap_offsets[1:])
+    c = np.ascontiguousarray
+    hap, read, pos, bad = _native.gather_anchor_jobs(
+        c(seq, np.uint8), c(seq_offsets, np.int64), c(original, np.int64),
+        c(np.concatenate(haplotypes) if haplotypes else np.zeros(0),
+          np.uint8),
+        hap_offsets, c(read_base, np.int64), c(hap_base, np.int64),
+        b"" if need is None else c(need, np.uint8), int(pad), K,
+        MAX_MAPPING_POSITIONS)
+    ROUTING.record_native_gather()
+    if bad is not None:
+        raise ShortHaplotypeError(fault(*bad))
+    return (np.frombuffer(hap, np.int64), np.frombuffer(read, np.int64),
+            np.frombuffer(pos, np.int64))
 
 
 class HaplotypeLikelihoodArray:
@@ -352,8 +263,7 @@ class HaplotypeLikelihoodArray:
         self.config = config or LikelihoodConfig()
         self.source = source
         self.device = resolve_device(self.config.device)
-        if self.device.type == "cuda":
-            require_native()
+        require_native()
         self._snv_model, self._indel_model = make_error_models(self.config.error_model)
         self.likelihoods: list[np.ndarray] = []   # per sample (H, R)
         self._n_haplotypes = 0
@@ -486,7 +396,7 @@ class HaplotypeLikelihoodArray:
                             need[h, r] = False
 
             job_hap, job_read, job_pos = _gather_jobs(
-                self.device, batch.seq, batch.seq_offsets, original,
+                batch.seq, batch.seq_offsets, original,
                 haplotypes, np.array([0, n_reads]), np.array([0, H]), need,
                 pad, lambda h, r: (f"haplotype {h} too short for read {r} "
                                    f"(len {lens[r]}, hap {len(haplotypes[h])})"))
@@ -717,10 +627,8 @@ class HaplotypeLikelihoodArray:
                     flank, pad, is_rev,
                     tgt.astype(np.int32), quals.astype(np.int32),
                     win, opn, ext, mask, prior, L, W)
-            if corrected is not None:
-                ROUTING.record(self.source, "host_dp", n)
-                ln = -LN10_DIV_10 * corrected.astype(np.float64)
-                return ln
+            ROUTING.record(self.source, "host_dp", n)
+            return -LN10_DIV_10 * corrected.astype(np.float64)
 
         # one launch for the whole job set, at its real size
         tgt_i = tgt.astype(np.int32)
@@ -733,8 +641,7 @@ class HaplotypeLikelihoodArray:
         ln = -LN10_DIV_10 * scores.astype(np.float64)
 
         # flank discount: traceback-and-subtract for reads overlapping flanks
-        # (simd_pair_hmm.hpp:352-430). Batched through the native extension;
-        # per-read python golden path as fallback.
+        # (simd_pair_hmm.hpp:352-430), batched through the host extension
         if flank_rows:
             with timers.phase("populate_flank"):
                 rows = np.asarray(flank_rows, np.int64)
@@ -742,27 +649,7 @@ class HaplotypeLikelihoodArray:
                     rows, penalties, job_hap, job_read, job_pos, job_lens,
                     flank, pad, is_rev, tgt_i, qual_i,
                     win, opn, ext, mask, prior, L, W)
-                if corrected is not None:
-                    ln[rows] = -LN10_DIV_10 * corrected.astype(np.float64)
-                else:
-                    for k in flank_rows:
-                        h = job_hap[k]
-                        p = penalties[h]
-                        rev = is_rev[job_read[k]]
-                        params = ph.HmmParams(
-                            gap_open=p.gap_open, gap_extend=p.gap_extend,
-                            snv_mask=(p.snv_mask_rev if rev else p.snv_mask_fwd),
-                            snv_prior=(p.snv_prior_rev if rev else p.snv_prior_fwd),
-                            nuc_prior=cfg.nuc_prior,
-                            lhs_flank=flank.lhs_flank,
-                            rhs_flank=flank.rhs_flank,
-                        )
-                        rl = int(job_lens[k])
-                        ln[k] = ph.hmm_evaluate(
-                            p.codes, tgt[k, :rl].astype(np.uint8),
-                            quals[k, :rl].astype(np.uint8),
-                            int(job_pos[k]), params, pad=pad,
-                        )
+                ln[rows] = -LN10_DIV_10 * corrected.astype(np.float64)
         return ln
 
     def _flank_corrected_scores(self, rows, penalties, job_hap, job_read,
@@ -770,12 +657,7 @@ class HaplotypeLikelihoodArray:
                                 tgt_i, qual_i, win, opn, ext, mask, prior,
                                 L, W):
         """Flank-corrected phred scores for the given job rows via the
-        native batched banded-align (returns None without the extension,
-        which only a CPU run may lack)."""
-        _native = (require_native() if self.device.type == "cuda"
-                   else load_native())
-        if _native is None:
-            return None
+        native batched banded-align."""
         n = len(rows)
         hap_lens = np.asarray([len(penalties[h].codes)
                                for h in job_hap[rows]], np.int32)
@@ -844,7 +726,7 @@ def populate_assignment_blocks(jobs, config: LikelihoodConfig | None = None
             original = np.maximum(merged.begins - hb[job_of_read], 0)
             is_rev = merged.is_reverse()
             job_hap, job_read, job_pos = _gather_jobs(
-                arr.device, merged.seq, merged.seq_offsets, original, haps_g,
+                merged.seq, merged.seq_offsets, original, haps_g,
                 read_base, hap_base, None, pad,
                 lambda h, r: (f"assignment-block haplotype too short "
                               f"(hap {len(haps_g[h])}, "

@@ -23,7 +23,8 @@ reference's interleaved anti-diagonal half-steps; the recurrences are
 algebraically identical.
 
 This module is used for: unit-test ground truth of the device kernel, the
-traceback/align path (read realignment, evidence BAMs), and host fallbacks.
+traceback/align path (read realignment, evidence BAMs, read assignment,
+de novo checks).
 """
 
 from __future__ import annotations
@@ -154,8 +155,8 @@ def banded_align(
 
     Tie-breaking prefers M over I over D (as the reference's label packing
     does).  Returns window-relative start position and op string. The host
-    extension's banded_traceback runs the same DP cell for cell when it is
-    built; _banded_align_py is its numpy form.
+    extension's banded_traceback runs the DP; _banded_align_py is its numpy
+    form cell for cell, which tests hold it to.
     """
     R = len(target)
     W = R + 2 * pad - 1
@@ -163,7 +164,7 @@ def banded_align(
     cm = match_costs(target, quals, truth_win, snv_mask_win, snv_prior_win)
     opn = gap_open_win.astype(np.int32)
     ext = gap_extend_win.astype(np.int32)
-    if _native and R > 0:
+    if R > 0:
         score, first_pos, ops = _native.banded_traceback(
             np.ascontiguousarray(cm, np.int32), np.ascontiguousarray(opn),
             np.ascontiguousarray(ext), R, pad, int(nuc_prior))

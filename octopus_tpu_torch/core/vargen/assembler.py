@@ -11,21 +11,18 @@ support score, aligned back to the reference segment with affine-gap
 Needleman-Wunsch, and decomposed into variants <= 5000 bp.
 
 Graphs are per-bin and small, so this is host code by design (SURVEY.md
-section 2.14 item 7); the hot alignment of bubble vs reference reuses
-numpy DP.
+section 2.14 item 7): the graph, its bubbles and the alignment of bubble
+vs reference run in the host extension.
 """
 
 from __future__ import annotations
 
-import heapq
-from collections import defaultdict
 from dataclasses import dataclass, field
 
 import numpy as np
 
-# native graph build + bubble search (csrc/octopus_native.cpp),
-# bit-identical to the python DeBruijnGraph below; built at first use, falsy
-# on a host without a toolchain (the python fallbacks then run)
+# native graph build, bubble search and alignment (csrc/octopus_native.cpp),
+# built at first use
 from ..._build import NATIVE as _native
 
 from ...basics.reads import ReadBatch
@@ -60,151 +57,18 @@ class AssemblerOptions:
     max_search_steps: int = 100_000
 
 
-class DeBruijnGraph:
-    """(k-1)-mer nodes, k-mer edges with read counts + ref ordering."""
-
-    def __init__(self, k: int):
-        self.k = k
-        self.edges: dict[bytes, dict[bytes, int]] = defaultdict(dict)
-        self.ref_order: dict[tuple[bytes, bytes], int] = {}
-        self.ref_path: list[bytes] = []
-        # a reference with repeated (k-1)-mers is ambiguous at this k: the
-        # reference's assembler rejects such kmer sizes and falls back
-        # (assembler.cpp reference-uniqueness requirement)
-        self.valid = True
-
-    def insert_reference(self, seq: bytes) -> None:
-        k = self.k
-        if len(seq) < k:
-            self.valid = False
-            return
-        nodes = [seq[i:i + k - 1] for i in range(len(seq) - k + 2)]
-        if len(set(nodes)) != len(nodes):
-            self.valid = False
-            return
-        prev = nodes[0]
-        self.ref_path = [prev]
-        for i in range(len(seq) - k + 1):
-            node = nodes[i + 1]
-            self.edges[prev].setdefault(node, 0)
-            self.ref_order[(prev, node)] = i
-            self.ref_path.append(node)
-            prev = node
-
-    def insert_read(self, seq: bytes) -> None:
-        k = self.k
-        n = len(seq)
-        if n < k:
-            return
-        # split on masked bases (N encoded as 4 -> byte 4)
-        start = 0
-        for i in range(n + 1):
-            if i == n or seq[i] == 4:
-                if i - start >= k:
-                    self._insert_clean(seq[start:i])
-                start = i + 1
-
-    def _insert_clean(self, seq: bytes) -> None:
-        k = self.k
-        prev = seq[:k - 1]
-        for i in range(len(seq) - k + 1):
-            node = seq[i + 1:i + k]
-            d = self.edges[prev]
-            d[node] = d.get(node, 0) + 1
-            prev = node
-
-    def prune(self, min_weight: int) -> None:
-        """Drop non-reference edges below the support threshold.
-
-        Deliberately STRICTER than Assembler::remove_low_weight_edges
-        (assembler.cpp:1380-1387), which spares low-weight edges at
-        well-connected junctions: in this pipeline (no iterative cleanup /
-        flank pruning stages) that leniency keeps every single-read noise
-        edge leaving a covered reference node alive, and those paths
-        manufacture junk bubbles (round-4 10 Mb heavy tail)."""
-        for src in list(self.edges):
-            dst = self.edges[src]
-            for node in list(dst):
-                if dst[node] < min_weight and (src, node) not in self.ref_order:
-                    del dst[node]
-            if not dst and src not in {n for n in self.ref_path}:
-                del self.edges[src]
-
-    def extract_bubbles(self, max_bubbles: int, min_score: float,
-                        max_extension: int,
-                        max_steps: int = 100_000) -> list[tuple[int, int, bytes, float]]:
-        """Alt paths leaving and rejoining the reference path.
-
-        Returns (ref_start_index, ref_end_index, alt_sequence, score) where
-        indices are k-mer offsets on the reference path and alt_sequence is
-        the full replacement for ref_path[start..end) node span.
-        """
-        ref_index = {node: i for i, node in enumerate(self.ref_path)}
-        out = []
-        # best-first search over divergent paths, scored by min edge support
-        heap: list = []
-        counter = 0
-        for i, src in enumerate(self.ref_path[:-1]):
-            for node, w in self.edges.get(src, {}).items():
-                if self.ref_order.get((src, node)) == i:
-                    continue
-                if w <= 0:
-                    continue
-                if counter >= max_steps:
-                    break
-                counter += 1
-                heapq.heappush(heap, (-w, counter, i, node, [node], w))
-        seen_bubbles = set()
-        while heap and len(out) < max_bubbles:
-            neg_score, _, start_i, node, path, min_w = heapq.heappop(heap)
-            if node in ref_index and ref_index[node] > start_i:
-                # rejoined the reference
-                end_i = ref_index[node]
-                alt = self.ref_path[start_i] + b"".join(p[-1:] for p in path)
-                key = (start_i, end_i, alt)
-                if key not in seen_bubbles and min_w >= min_score:
-                    seen_bubbles.add(key)
-                    out.append((start_i, end_i, alt, float(min_w)))
-                continue
-            if len(path) > max_extension:
-                continue
-            for nxt, w in self.edges.get(node, {}).items():
-                if w <= 0 and (node, nxt) not in self.ref_order:
-                    continue
-                if nxt in path or nxt == self.ref_path[start_i]:  # no revisits
-                    continue
-                if counter >= max_steps:
-                    break
-                eff = min(min_w, w) if (node, nxt) not in self.ref_order else min_w
-                counter += 1
-                heapq.heappush(heap, (-eff, counter, start_i, nxt,
-                                      path + [nxt], eff))
-        return out
-
-
 def assemble_bubbles(ref_bytes: bytes, masked_reads: list[bytes], k: int,
                      opt: "AssemblerOptions"):
-    """Graph build + prune + bubble search for one bin at one kmer size.
+    """Graph build + prune + bubble search for one bin at one kmer size, in
+    the host extension (extract_bubbles).
 
     Returns the (start_i, end_i, alt_bytes, score) bubble list, or None when
-    the reference is ambiguous at this k (duplicate (k-1)-mers). Uses the
-    C++ extension when available; the python DeBruijnGraph is the reference
-    implementation and the fallback.
+    the reference is ambiguous at this k (duplicate (k-1)-mers).
     """
-    if _native:
-        return _native.extract_bubbles(
-            ref_bytes, masked_reads, k, opt.min_kmer_observations,
-            opt.max_bubbles, float(opt.min_bubble_score),
-            opt.max_path_extension, opt.max_search_steps)
-    g = DeBruijnGraph(k)
-    g.insert_reference(ref_bytes)
-    if not g.valid:
-        return None
-    for seq in masked_reads:
-        g.insert_read(seq)
-    g.prune(opt.min_kmer_observations)
-    return g.extract_bubbles(opt.max_bubbles, opt.min_bubble_score,
-                             opt.max_path_extension, opt.max_search_steps)
+    return _native.extract_bubbles(
+        ref_bytes, masked_reads, k, opt.min_kmer_observations,
+        opt.max_bubbles, float(opt.min_bubble_score),
+        opt.max_path_extension, opt.max_search_steps)
 
 
 # ---------------------------------------------------------------------------
@@ -214,63 +78,15 @@ def assemble_bubbles(ref_bytes: bytes, masked_reads: list[bytes], k: int,
 def global_align(a: np.ndarray, b: np.ndarray, match: int = 2,
                  mismatch: int = -3, gap_open: int = -8,
                  gap_extend: int = -1) -> list[tuple[int, str]]:
-    """Needleman-Wunsch with affine gaps; returns [(length, op)] with ops
-    M/I/D where I consumes `b` (the alt) and D consumes `a` (the ref)."""
-    if _native and hasattr(_native, "global_align"):
-        raw = _native.global_align(
-            np.ascontiguousarray(a, np.uint8).tobytes(),
-            np.ascontiguousarray(b, np.uint8).tobytes(),
-            int(match), int(mismatch), int(gap_open), int(gap_extend))
-        pairs = np.frombuffer(raw, np.int32).reshape(-1, 2)
-        return [(int(l), "MID"[op]) for l, op in pairs]
-    n, m = len(a), len(b)
-    NEG = -(1 << 30)
-    M = np.full((n + 1, m + 1), NEG, np.int64)
-    X = np.full((n + 1, m + 1), NEG, np.int64)   # gap in b (deletion of a)
-    Y = np.full((n + 1, m + 1), NEG, np.int64)   # gap in a (insertion of b)
-    M[0, 0] = 0
-    for i in range(1, n + 1):
-        X[i, 0] = gap_open + (i - 1) * gap_extend
-    for j in range(1, m + 1):
-        Y[0, j] = gap_open + (j - 1) * gap_extend
-    for i in range(1, n + 1):
-        sub = np.where(a[i - 1] == b[:m], match, mismatch)
-        for j in range(1, m + 1):
-            best_prev = max(M[i - 1, j - 1], X[i - 1, j - 1], Y[i - 1, j - 1])
-            M[i, j] = best_prev + sub[j - 1]
-            X[i, j] = max(M[i - 1, j] + gap_open, X[i - 1, j] + gap_extend)
-            Y[i, j] = max(M[i, j - 1] + gap_open, Y[i, j - 1] + gap_extend)
-    # traceback
-    i, j = n, m
-    state = int(np.argmax([M[n, m], X[n, m], Y[n, m]]))
-    ops: list[tuple[int, str]] = []
-
-    def push(op):
-        if ops and ops[-1][1] == op:
-            ops[-1] = (ops[-1][0] + 1, op)
-        else:
-            ops.append((1, op))
-
-    while i > 0 or j > 0:
-        if state == 0 and i > 0 and j > 0:
-            prev = int(np.argmax([M[i - 1, j - 1], X[i - 1, j - 1], Y[i - 1, j - 1]]))
-            push("M")
-            i, j = i - 1, j - 1
-            state = prev
-        elif state == 1 and i > 0:
-            if X[i, j] == M[i - 1, j] + gap_open:
-                state = 0
-            push("D")
-            i -= 1
-        elif state == 2 and j > 0:
-            if Y[i, j] == M[i, j - 1] + gap_open:
-                state = 0
-            push("I")
-            j -= 1
-        else:
-            state = 1 if i > 0 else 2
-    ops.reverse()
-    return ops
+    """Needleman-Wunsch with affine gaps, in the host extension; returns
+    [(length, op)] with ops M/I/D where I consumes `b` (the alt) and D
+    consumes `a` (the ref)."""
+    raw = _native.global_align(
+        np.ascontiguousarray(a, np.uint8).tobytes(),
+        np.ascontiguousarray(b, np.uint8).tobytes(),
+        int(match), int(mismatch), int(gap_open), int(gap_extend))
+    pairs = np.frombuffer(raw, np.int32).reshape(-1, 2)
+    return [(int(l), "MID"[op]) for l, op in pairs]
 
 
 def variants_from_alignment(ref_begin: int, ref: np.ndarray, alt: np.ndarray,
@@ -483,7 +299,6 @@ class LocalReassembler:
 __all__ = [
     "LocalReassembler",
     "AssemblerOptions",
-    "DeBruijnGraph",
     "assemble_bubbles",
     "global_align",
     "variants_from_alignment",

@@ -9,9 +9,9 @@ and applies the reference's inclusion heuristics (is_good_germline /
 is_good_somatic, cigar_scanner.cpp:500-700) over depth, strand and
 base-quality stats.
 
-Batch design: reads arrive as ReadBatch SoA; M-range mismatch detection is a
-vectorised compare of gathered reference vs read segments; coverage uses
-np.add.at difference arrays.
+Batch design: reads arrive as ReadBatch SoA; one call of the host
+extension walks every read of a batch (scan_cigar_reads); coverage uses
+difference arrays.
 """
 
 from __future__ import annotations
@@ -22,16 +22,12 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from ...basics import cigar as cg
 from ...basics.reads import ReadBatch
 from ..types.variants import Variant
 
-# native whole-batch scan (csrc/octopus_native.cpp:scan_cigar_reads); built
-# at first use, falsy on a host without a toolchain (the python fallbacks
-# then run)
+# native whole-batch scan (csrc/octopus_native.cpp:scan_cigar_reads), built
+# at first use
 from ..._build import NATIVE as _native
-
-LN10_DIV_10 = math.log(10) / 10
 
 
 @dataclass
@@ -93,26 +89,19 @@ class CigarScanner:
     # -- scanning ----------------------------------------------------------
 
     def add_reads(self, sample: int, batch: ReadBatch) -> None:
+        """One native call scans the whole batch: each read's mismatches,
+        insertions and deletions, and its misalignment penalty."""
         self._n_samples = max(self._n_samples, sample + 1)
-        opt = self.options
         if len(batch) == 0:
             return
-        lo = int(batch.begins.min())
-        hi = int(batch.ends.max())
-        ref_chunk = self.reference.fetch_codes(self.contig, lo, hi)
-        is_fwd = ~batch.is_reverse()
-        if _native and hasattr(_native, "scan_cigar_reads"):
-            self._scan_batch_native(sample, batch, ref_chunk, lo, is_fwd)
-        else:
-            for r in range(len(batch)):
-                self._scan_read(sample, batch, r, ref_chunk, lo, bool(is_fwd[r]))
-
-    def _scan_batch_native(self, sample, batch, ref_chunk, chunk_begin, is_fwd):
-        """One native call scans the whole batch (_scan_read semantics)."""
         opt = self.options
+        chunk_begin = int(batch.begins.min())
+        ref_chunk = self.reference.fetch_codes(self.contig, chunk_begin,
+                                               int(batch.ends.max()))
+        is_fwd = ~batch.is_reverse()
         raw = _native.scan_cigar_reads(
             np.ascontiguousarray(ref_chunk, np.uint8).tobytes(),
-            int(chunk_begin),
+            chunk_begin,
             np.ascontiguousarray(batch.begins, np.int64).tobytes(),
             np.ascontiguousarray(batch.ends, np.int64).tobytes(),
             np.ascontiguousarray(batch.mapq, np.uint8).tobytes(),
@@ -150,74 +139,6 @@ class CigarScanner:
         for r in range(len(batch)):
             self._cov_events.append((sample, int(begins_arr[r]),
                                      int(batch.ends[r]), 1, bool(is_fwd[r])))
-
-    def _scan_read(self, sample, batch, r, ref_chunk, chunk_begin, forward):
-        opt = self.options
-        seq = batch.sequence(r)
-        quals = batch.qualities(r)
-        cigar = batch.cigar(r)
-        begin = int(batch.begins[r])
-        end = int(batch.ends[r])
-        mapq = int(batch.mapq[r])
-        ref_i = begin
-        read_i = 0
-        penalty = 0.0
-        found: list[tuple[int, int, bytes, bytes, int, int]] = []  # b,e,ref,alt,offset,altlen
-        for length, op in cigar:
-            length = int(length)
-            if op in (cg.M, cg.EQ, cg.X):
-                rseg = ref_chunk[ref_i - chunk_begin: ref_i - chunk_begin + length]
-                qseg = seq[read_i:read_i + length]
-                mism = np.flatnonzero((rseg != qseg) & (rseg != 4) & (qseg != 4))
-                for i in mism:
-                    i = int(i)
-                    found.append((ref_i + i, ref_i + i + 1,
-                                  rseg[i:i + 1].tobytes(), qseg[i:i + 1].tobytes(),
-                                  read_i + i, 1))
-                    if quals[read_i + i] >= opt.snv_threshold:
-                        penalty += opt.snv_penalty
-                read_i += length
-                ref_i += length
-            elif op == cg.I:
-                found.append((ref_i, ref_i, b"", seq[read_i:read_i + length].tobytes(),
-                              read_i, length))
-                read_i += length
-                penalty += opt.indel_penalty
-            elif op == cg.D:
-                rseg = ref_chunk[ref_i - chunk_begin: ref_i - chunk_begin + length]
-                found.append((ref_i, ref_i + length, rseg.tobytes(), b"", read_i, 0))
-                ref_i += length
-                penalty += opt.indel_penalty
-            elif op == cg.S:
-                read_i += length
-                if length > opt.max_unpenalised_clip_size:
-                    penalty += opt.clip_penalty
-            elif op == cg.H:
-                if length > opt.max_unpenalised_clip_size:
-                    penalty += opt.clip_penalty
-            elif op in (cg.NSKIP, cg.P):
-                ref_i += length
-        misaligned = (opt.use_misalignment_filter
-                      and self._is_likely_misaligned(penalty, mapq, end - begin))
-        for b, e, ref, alt, offset, alt_len in found:
-            if e - b > opt.max_variant_size:
-                continue
-            sum_q = int(quals[offset:offset + alt_len].sum()) if alt_len else 0
-            at_edge = (b == begin) or (e == end)
-            self._candidates.append(_Candidate(
-                b, e, ref, alt, sample, forward, sum_q, at_edge, mapq, misaligned))
-        self._cov_events.append((sample, begin, end, 1, forward))
-
-    def _is_likely_misaligned(self, penalty: float, mapq: int, read_span: int) -> bool:
-        opt = self.options
-        k = int(math.floor(penalty))
-        if k == 0:
-            return False
-        ln_prob_missmapped = -LN10_DIV_10 * mapq
-        ln_prob_mapped = math.log1p(-math.exp(ln_prob_missmapped)) if mapq > 0 else -math.inf
-        mu = opt.max_expected_mutation_rate * read_span
-        ln_sf = _poisson_lnsf(k - 1, mu)   # P(X >= k)
-        return ln_prob_mapped + ln_sf < opt.min_ln_prob_correctly_aligned
 
     # -- generation --------------------------------------------------------
 
@@ -327,28 +248,6 @@ class CigarScanner:
 # ---------------------------------------------------------------------------
 # Reference inclusion heuristics (cigar_scanner.cpp:500-700)
 # ---------------------------------------------------------------------------
-
-@functools.lru_cache(maxsize=65536)
-def _poisson_lnsf(k_minus_1: int, mu: float) -> float:
-    """ln P(Poisson(mu) >= k) summed directly over the upper tail in log
-    space (no 1-CDF cancellation), memoised — (k, mu) repeats for every
-    same-length read (scipy's generic logsf machinery cost ~0.1 ms/read)."""
-    k = k_minus_1 + 1
-    if mu <= 0.0:
-        return 0.0 if k <= 0 else -math.inf
-    ln_mu = math.log(mu)
-    lead = -mu + k * ln_mu - math.lgamma(k + 1)
-    total = 1.0          # tail sum / exp(lead)
-    ratio = 1.0
-    i = k
-    while True:
-        i += 1
-        ratio *= mu / i
-        if ratio < 1e-18:
-            break
-        total += ratio
-    return min(lead + math.log(total), 0.0)
-
 
 @functools.lru_cache(maxsize=200_000)
 def _fisher_two_sided_p(a: int, b: int, c: int, d: int) -> float:

@@ -4,8 +4,7 @@
 // htslib_sam_facade.cpp); this extension provides the equivalent hot loops
 // natively — BGZF block inflation (zlib) and BAM record boundary scanning —
 // exposed through the CPython C API (no pybind11 in this environment).
-// Python falls back to pure-python implementations when the extension is
-// not built.
+// The port requires it: its host modules have no other form of these loops.
 
 #define PY_SSIZE_T_CLEAN
 #include <Python.h>
@@ -1668,52 +1667,6 @@ static PyObject* banded_traceback(PyObject*, PyObject* args) {
                          (Py_ssize_t)ops.size());
 }
 
-// count_runs(mask: int16 buffer, max_gap) -> int32 bytes
-// Mirrors octopus_tpu.core.likelihood.error_models._count_runs (which in
-// turn mirrors count_runs in repeat_based_snv_error_model.cpp): for each
-// position, the length of the repeat run that just ended there.
-static PyObject* count_runs(PyObject*, PyObject* args) {
-    Py_buffer buf;
-    int max_gap;
-    if (!PyArg_ParseTuple(args, "y*i", &buf, &max_gap)) return nullptr;
-    const int16_t* mask = (const int16_t*)buf.buf;
-    Py_ssize_t n = buf.len / (Py_ssize_t)sizeof(int16_t);
-    PyObject* result = PyBytes_FromStringAndSize(nullptr, n * sizeof(int32_t));
-    if (!result) { PyBuffer_Release(&buf); return nullptr; }
-    int32_t* out = (int32_t*)PyBytes_AS_STRING(result);
-    if (n > 0) {
-        std::memset(out, 0, n * sizeof(int32_t));
-        int16_t prev = mask[0];
-        int32_t count = prev > 0 ? 1 : 0;
-        int gap = 0;
-        for (Py_ssize_t i = 1; i < n; ++i) {
-            int16_t x = mask[i];
-            int32_t emitted = 0;
-            if (x == 0) {
-                ++gap;
-                if (count > 0) {
-                    if (gap == 1) {
-                        emitted = count;
-                        if (max_gap < 1) count = 0;
-                    } else if (gap > max_gap) {
-                        count = 0;
-                    }
-                }
-            } else if (prev == x) {
-                gap = 0;
-                ++count;
-            } else {
-                prev = x;
-                emitted = count;
-                count = 1;
-            }
-            out[i] = emitted;
-        }
-    }
-    PyBuffer_Release(&buf);
-    return result;
-}
-
 // ---------------------------------------------------------------------------
 // Batched banded pair-HMM align + flank-score discount.
 //
@@ -2093,8 +2046,8 @@ static PyObject* flank_banded_scores(PyObject*, PyObject* args) {
 // ---------------------------------------------------------------------------
 // Per-site read support/mismatch statistics for the CSR measures
 // (mirrors octopus_tpu/core/csr/measures.py _read_supports /
-// _read_mismatches bit-for-bit; the python implementations remain the
-// golden fallback).  Cigar ops: 0=M 1=I 2=D 3=N 4=S 5=H 6=P 7=EQ 8=X.
+// _read_mismatches bit-for-bit).  Cigar ops: 0=M 1=I 2=D 3=N 4=S 5=H 6=P
+// 7=EQ 8=X.
 // ---------------------------------------------------------------------------
 
 static bool rotations_equal(const uint8_t* a, const uint8_t* b, int64_t n) {
@@ -2254,8 +2207,9 @@ static PyObject* site_read_stats(PyObject*, PyObject* args) {
     return tup;
 }
 
-// The (haplotype, read, anchor) jobs of a populate, as the NumPy form of
-// likelihood_array._gather_jobs gives them, element for element.
+// The (haplotype, read, anchor) jobs of a populate, as the reference's
+// k-mer mapper and _populate_sample give them, element for element
+// (tests/test_torch_anchor_jobs.py).
 //
 // Groups: reads [read_base[g], read_base[g+1]) against haplotypes
 // [hap_base[g], hap_base[g+1]). For each haplotype of a group, in order:
@@ -2489,8 +2443,6 @@ static PyMethodDef methods[] = {
      "Per-read site support/bq/offset/mismatch/clip stats for measures."},
     {"flank_banded_scores", flank_banded_scores, METH_VARARGS,
      "Batched banded align + flank-score discount -> int32-le scores."},
-    {"count_runs", count_runs, METH_VARARGS,
-     "Repeat-run lengths ending at each position -> int32-le bytes."},
     {"decode_bam_records", decode_bam_records, METH_VARARGS,
      "Full BAM record decode for one region -> tuple of flat field buffers."},
     {"banded_traceback", banded_traceback, METH_VARARGS,

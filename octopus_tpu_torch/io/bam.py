@@ -2,9 +2,9 @@
 
 Capability-equivalent to the reference's HtslibSamFacade
 (src/io/read/htslib_sam_facade.{hpp,cpp}) without htslib: BGZF blocks are
-inflated with zlib, the BAI index drives region queries, and record fields
-are decoded with numpy gathers over the raw byte buffer — no per-record
-python parsing for the fixed fields, sequences, or qualities.
+inflated and records decoded in one pass each by the host extension
+(csrc/octopus_native.cpp: inflate_bgzf, decode_bam_records), and the BAI
+index drives region queries.
 
 Sample extraction follows the reference: one sample per @RG SM tag
 (reads with no RG fall back to a file-level default sample).
@@ -18,12 +18,10 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from ..basics import cigar as cg
 from ..basics.reads import ReadBatch
 from .bgzf import BgzfReader
 
-# native one-pass record decode (csrc/octopus_native.cpp); built at first
-# use, falsy on a host without a toolchain (the python fallback then runs)
+# native one-pass record decode (csrc/octopus_native.cpp), built at first use
 from .._build import NATIVE as _native
 
 # 4-bit encoded bases: =ACMGRSVTWYHKDBN -> our codes (A0 C1 G2 T3 N4)
@@ -212,194 +210,11 @@ class BamFile:
         buf = b"".join(self._bgzf.read_range(beg, cend) for beg, cend in chunks)
         return self._decode_records(buf, ref_id, begin, end, keep_names, keep_aux)
 
-    # -- vectorised record decode -----------------------------------------
+    # -- record decode ------------------------------------------------------
 
     def _decode_records(self, buf: bytes, ref_id: int, begin: int, end: int,
-                        keep_names: bool, keep_aux: bool = False) -> dict[str, ReadBatch]:
-        if _native and hasattr(_native, "decode_bam_records"):
-            return self._decode_records_native(buf, ref_id, begin, end,
-                                               keep_names, keep_aux)
-        arr = np.frombuffer(buf, dtype=np.uint8)
-        n_bytes = len(arr)
-        # first pass: record boundaries
-        starts = []
-        off = 0
-        while off + 4 <= n_bytes:
-            block_size = int.from_bytes(buf[off:off + 4], "little")
-            if block_size <= 0 or off + 4 + block_size > n_bytes:
-                break
-            starts.append(off)
-            off += 4 + block_size
-        if not starts:
-            return {}
-        starts = np.asarray(starts, dtype=np.int64)
-
-        def u8(o):
-            return arr[starts + o].astype(np.int64)
-
-        def i32(o):
-            return (u8(o) | (u8(o + 1) << 8) | (u8(o + 2) << 16) | (u8(o + 3) << 24)).astype(np.int32)
-
-        def u16(o):
-            return (u8(o) | (u8(o + 1) << 8)).astype(np.int64)
-
-        rec_ref = i32(4)
-        rec_pos = i32(8)
-        l_read_name = u8(12)
-        mapq = u8(13)
-        n_cigar = u16(16)
-        flags = u16(18)
-        l_seq = i32(20).astype(np.int64)
-        next_ref = i32(24)
-        next_pos = i32(28)
-        tlen = i32(32)
-
-        # select candidate records on this ref beginning before region end;
-        # the end filter happens after cigar decode
-        keep = (rec_ref == ref_id) & (rec_pos < end) & ((flags & 0x4) == 0)
-        idx = np.flatnonzero(keep)
-        if len(idx) == 0:
-            return {}
-        starts = starts[idx]
-        rec_pos = rec_pos[idx].astype(np.int64)
-        l_read_name = l_read_name[idx]
-        mapq = mapq[idx]
-        n_cigar = n_cigar[idx]
-        flags = flags[idx]
-        l_seq = l_seq[idx]
-        next_ref_k = next_ref[idx]
-        next_pos_k = next_pos[idx].astype(np.int64)
-        tlen_k = tlen[idx]
-        n = len(starts)
-
-        cigar_off = starts + 36 + l_read_name
-        seq_off = cigar_off + 4 * n_cigar
-        qual_off = seq_off + (l_seq + 1) // 2
-
-        # cigars: ragged gather of uint32 words
-        cigar_offsets = np.zeros(n + 1, np.int64)
-        np.cumsum(n_cigar, out=cigar_offsets[1:])
-        total_ops = int(cigar_offsets[-1])
-        word_idx = np.repeat(cigar_off, n_cigar) + 4 * (
-            np.arange(total_ops) - np.repeat(cigar_offsets[:-1], n_cigar))
-        w = (arr[word_idx].astype(np.uint32)
-             | (arr[word_idx + 1].astype(np.uint32) << 8)
-             | (arr[word_idx + 2].astype(np.uint32) << 16)
-             | (arr[word_idx + 3].astype(np.uint32) << 24))
-        cigar_ops = np.stack([(w >> 4).astype(np.int32), (w & 0xF).astype(np.int32)], axis=1)
-
-        # reference span per read from cigar
-        op_consumes_ref = cg.CONSUMES_REF[cigar_ops[:, 1]]
-        ref_span_per_op = np.where(op_consumes_ref, cigar_ops[:, 0], 0).astype(np.int64)
-        read_of_op = np.repeat(np.arange(n), n_cigar)
-        ref_spans = np.zeros(n, np.int64)
-        np.add.at(ref_spans, read_of_op, ref_span_per_op)
-        ends = rec_pos + ref_spans
-
-        # sequences: unpack 4-bit
-        seq_offsets = np.zeros(n + 1, np.int64)
-        np.cumsum(l_seq, out=seq_offsets[1:])
-        total_bases = int(seq_offsets[-1])
-        base_pos = np.arange(total_bases) - np.repeat(seq_offsets[:-1], l_seq)
-        byte_idx = np.repeat(seq_off, l_seq) + base_pos // 2
-        nibbles = arr[byte_idx]
-        hi = (base_pos % 2) == 0
-        codes4 = np.where(hi, nibbles >> 4, nibbles & 0xF)
-        seq = _SEQ4_TO_CODE[codes4]
-        qual_idx = np.repeat(qual_off, l_seq) + base_pos
-        quals = arr[qual_idx].copy()
-        quals[quals == 0xFF] = 30   # missing qualities
-
-        # final overlap filter
-        ov = (ends > begin) & (rec_pos < end)
-
-        # read-group -> sample routing
-        sample_of = self._route_samples(arr, starts, l_read_name, n_cigar, l_seq, n)
-
-        names = None
-        name_hashes = np.zeros(n, np.uint64)
-        name_bytes = []
-        for k in range(n):
-            nm = buf[int(starts[k]) + 36:int(starts[k]) + 36 + int(l_read_name[k]) - 1]
-            name_hashes[k] = hash(nm) & 0xFFFFFFFFFFFFFFFF
-            if keep_names:
-                name_bytes.append(nm.decode("latin-1"))
-        if keep_names:
-            names = name_bytes
-
-        aux_all = aux_offs_all = None
-        if keep_aux:
-            # `starts` is already filtered to kept records here, so u8 reads
-            # the kept records' block sizes directly
-            block_sizes = u8(0) | (u8(1) << 8) | (u8(2) << 16) | (u8(3) << 24)
-            a_start = starts + 36 + l_read_name + 4 * n_cigar + (l_seq + 1) // 2 + l_seq
-            a_end = starts + 4 + block_sizes
-            a_lens = np.maximum(a_end - a_start, 0)
-            aux_offs_all = np.zeros(n + 1, np.int64)
-            np.cumsum(a_lens, out=aux_offs_all[1:])
-            total_aux = int(aux_offs_all[-1])
-            if total_aux:
-                gidx = (np.repeat(a_start, a_lens)
-                        + np.arange(total_aux)
-                        - np.repeat(aux_offs_all[:-1], a_lens))
-                aux_all = arr[gidx]
-            else:
-                aux_all = np.zeros(0, np.uint8)
-
-        contig = self.header.ref_names[ref_id]
-        out: dict[str, ReadBatch] = {}
-        for sample in self.header.samples:
-            sel = np.flatnonzero(ov & (sample_of == self.header.samples.index(sample)))
-            if len(sel) == 0:
-                out[sample] = ReadBatch.empty(contig)
-                continue
-            batch = ReadBatch(
-                contig=contig,
-                begins=rec_pos[sel],
-                ends=ends[sel],
-                mapq=mapq[sel].astype(np.uint8),
-                flags=flags[sel].astype(np.uint16),
-                seq=np.zeros(0, np.uint8),
-                quals=np.zeros(0, np.uint8),
-                seq_offsets=np.zeros(len(sel) + 1, np.int64),
-                cigar_ops=np.zeros((0, 2), np.int32),
-                cigar_offsets=np.zeros(len(sel) + 1, np.int64),
-                mate_begins=next_pos_k[sel],
-                mate_same_contig=(next_ref_k[sel] == ref_id),
-                template_lengths=tlen_k[sel],
-                names=None if names is None else [names[int(k)] for k in sel],
-                name_hashes=name_hashes[sel],
-            )
-            # ragged gathers for seq/qual/cigar
-            lens_sel = l_seq[sel]
-            batch.seq_offsets = np.zeros(len(sel) + 1, np.int64)
-            np.cumsum(lens_sel, out=batch.seq_offsets[1:])
-            gather = (np.repeat(seq_offsets[sel], lens_sel)
-                      + np.arange(int(lens_sel.sum()))
-                      - np.repeat(batch.seq_offsets[:-1], lens_sel))
-            batch.seq = seq[gather]
-            batch.quals = quals[gather]
-            ops_sel = n_cigar[sel]
-            batch.cigar_offsets = np.zeros(len(sel) + 1, np.int64)
-            np.cumsum(ops_sel, out=batch.cigar_offsets[1:])
-            cgather = (np.repeat(cigar_offsets[sel], ops_sel)
-                       + np.arange(int(ops_sel.sum()))
-                       - np.repeat(batch.cigar_offsets[:-1], ops_sel))
-            batch.cigar_ops = cigar_ops[cgather]
-            if aux_all is not None:
-                alens = np.diff(aux_offs_all)[sel]
-                batch.aux_offsets = np.zeros(len(sel) + 1, np.int64)
-                np.cumsum(alens, out=batch.aux_offsets[1:])
-                agather = (np.repeat(aux_offs_all[sel], alens)
-                           + np.arange(int(alens.sum()))
-                           - np.repeat(batch.aux_offsets[:-1], alens))
-                batch.aux = aux_all[agather]
-            out[sample] = batch.sorted_by_begin()
-        return out
-
-    def _decode_records_native(self, buf: bytes, ref_id: int, begin: int,
-                               end: int, keep_names: bool,
-                               keep_aux: bool) -> dict[str, ReadBatch]:
+                        keep_names: bool,
+                        keep_aux: bool = False) -> dict[str, ReadBatch]:
         """One native pass decodes, filters and unpacks every record
         (csrc/octopus_native.cpp:decode_bam_records)."""
         (pos_b, ends_b, mapq_b, flags_b, nref_b, npos_b, tlen_b, hash_b,
@@ -495,25 +310,6 @@ class BamFile:
                 sel = np.flatnonzero(sample_of == si)
                 out[sample] = (ReadBatch.empty(contig) if len(sel) == 0
                                else build(sel).sorted_by_begin())
-        return out
-
-    def _route_samples(self, arr, starts, l_read_name, n_cigar, l_seq, n) -> np.ndarray:
-        """Sample index per record from the RG aux tag (python loop over the
-        aux region only; cheap relative to decode)."""
-        samples = self.header.samples
-        if len(samples) == 1:
-            return np.zeros(n, np.int64)
-        out = np.zeros(n, np.int64)
-        buf = arr.tobytes()
-        block_sizes = (arr[starts].astype(np.int64) | (arr[starts + 1].astype(np.int64) << 8)
-                       | (arr[starts + 2].astype(np.int64) << 16) | (arr[starts + 3].astype(np.int64) << 24))
-        aux_start = starts + 36 + l_read_name + 4 * n_cigar + (l_seq + 1) // 2 + l_seq
-        aux_end = starts + 4 + block_sizes
-        for k in range(n):
-            rg = _find_rg(buf, int(aux_start[k]), int(aux_end[k]))
-            if rg is not None:
-                sm = self.header.read_group_sample.get(rg, samples[0])
-                out[k] = samples.index(sm) if sm in samples else 0
         return out
 
 

@@ -13,15 +13,16 @@ import struct
 import zlib
 from dataclasses import dataclass
 
+import numpy as np
+
 BGZF_EOF = bytes.fromhex(
     "1f8b08040000000000ff0600424302001b0003000000000000000000"
 )
 
 _HDR = struct.Struct("<4BI2BH")   # magic(4) mtime xfl os xlen
 
-# native inflate (csrc/octopus_native.cpp); built at first use, falsy on a
-# host without a toolchain (the python fallbacks then run)
-from .._build import NATIVE as _native_ext
+# native inflate (csrc/octopus_native.cpp), built at first use
+from .._build import NATIVE as _native
 
 
 class BgzfReader:
@@ -85,32 +86,9 @@ class BgzfReader:
         return entry
 
     def read_range(self, vstart: int, vend: int) -> bytes:
-        """Bytes between two virtual offsets."""
-        if _native_ext:
-            return self._read_range_native(vstart, vend)
-        coff = vstart >> 16
-        uoff = vstart & 0xFFFF
-        end_coff = vend >> 16
-        end_uoff = vend & 0xFFFF
-        parts: list[bytes] = []
-        while True:
-            data, bsize = self._read_block(coff)
-            if not data and bsize == 0:
-                break
-            if coff == end_coff:
-                parts.append(data[uoff:end_uoff])
-                break
-            parts.append(data[uoff:])
-            coff += bsize
-            uoff = 0
-            if coff > end_coff:
-                break
-        return b"".join(parts)
-
-    def _read_range_native(self, vstart: int, vend: int) -> bytes:
-        """Native-inflate path: one disk read of the compressed span, one
-        zlib pass in C (GIL released)."""
-        import numpy as np
+        """Bytes between two virtual offsets: one disk read of the
+        compressed span, one inflate pass in the host extension (GIL
+        released)."""
         coff = vstart >> 16
         uoff = vstart & 0xFFFF
         end_coff = vend >> 16
@@ -119,7 +97,7 @@ class BgzfReader:
         with self._io_lock:
             self._fh.seek(coff)
             raw = self._fh.read((end_coff - coff) + (1 << 16) + 64)
-        data, coffs_b, uoffs_b = _native_ext.inflate_bgzf(raw)
+        data, coffs_b, uoffs_b = _native.inflate_bgzf(raw)
         if end_coff == coff:
             return data[uoff:end_uoff]
         coffs = np.frombuffer(coffs_b, "<u8")

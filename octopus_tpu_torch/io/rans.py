@@ -6,8 +6,9 @@ the canonical implementation; see src/io/read/htslib_sam_facade.cpp for the
 facade this replaces).  Four interleaved 32-bit range-coder states, 12-bit
 normalised frequencies, byte-wise renormalisation at 2^23.
 
-Pure numpy/python; streams are small (CRAM slice blocks) and decode is
-table-driven, so this is host-side I/O work, not device work.
+Encoding is numpy/python (the CRAM writer); decoding runs in the host
+extension (csrc/octopus_native.cpp:rans_uncompress). Streams are small
+(CRAM slice blocks), so this is host-side I/O work, not device work.
 """
 
 from __future__ import annotations
@@ -16,8 +17,7 @@ import struct
 
 import numpy as np
 
-# native decode hot loop (csrc/octopus_native.cpp); built at first use,
-# falsy on a host without a toolchain (the python fallback then runs)
+# native decode (csrc/octopus_native.cpp), built at first use
 from .._build import NATIVE as _native
 
 TF_SHIFT = 12
@@ -71,43 +71,6 @@ def _write_freqs(freqs: np.ndarray, out: bytearray) -> None:
     out.append(0)
 
 
-def _read_freqs(data: bytes, off: int) -> tuple[np.ndarray, int]:
-    freqs = np.zeros(256, dtype=np.int64)
-    rle = 0
-    j = data[off]
-    off += 1
-    while True:
-        f = data[off]
-        off += 1
-        if f >= 128:
-            f = ((f & 127) << 8) | data[off]
-            off += 1
-        freqs[j] = f
-        if rle > 0:
-            rle -= 1
-            j += 1
-        elif data[off] == j + 1:
-            j = data[off]
-            rle = data[off + 1]
-            off += 2
-        else:
-            j = data[off]
-            off += 1
-        if j == 0:
-            break
-    return freqs, off
-
-
-def _tables(freqs: np.ndarray):
-    cum = np.zeros(257, dtype=np.int64)
-    np.cumsum(freqs, out=cum[1:])
-    # symbol lookup by 12-bit slot
-    sym_of = np.zeros(TOTFREQ, dtype=np.uint8)
-    for s in np.flatnonzero(freqs):
-        sym_of[cum[s]:cum[s + 1]] = s
-    return cum, sym_of
-
-
 # ---------------------------------------------------------------------------
 # order-0
 # ---------------------------------------------------------------------------
@@ -125,7 +88,8 @@ def _enc_put(state: int, freq: int, start: int, out: bytearray) -> int:
 
 
 def _encode0_payload(data: bytes, freqs: np.ndarray) -> bytes:
-    cum, _ = _tables(freqs)
+    cum = np.zeros(257, dtype=np.int64)
+    np.cumsum(freqs, out=cum[1:])
     out = bytearray()
     states = [RANS_LOW] * 4
     n = len(data)
@@ -136,25 +100,6 @@ def _encode0_payload(data: bytes, freqs: np.ndarray) -> bytes:
     for j in (3, 2, 1, 0):
         _enc_flush(states[j], out)
     return bytes(out[::-1])
-
-
-def _decode0_payload(comp: bytes, freqs: np.ndarray, out_sz: int) -> bytes:
-    cum, sym_of = _tables(freqs)
-    states = list(struct.unpack_from("<4I", comp, 0))
-    ptr = 16
-    out = bytearray(out_sz)
-    for i in range(out_sz):
-        j = i & 3
-        x = states[j]
-        slot = x & (TOTFREQ - 1)
-        s = int(sym_of[slot])
-        out[i] = s
-        x = int(freqs[s]) * (x >> TF_SHIFT) + slot - int(cum[s])
-        while x < RANS_LOW and ptr < len(comp):
-            x = (x << 8) | comp[ptr]
-            ptr += 1
-        states[j] = x
-    return bytes(out)
 
 
 # ---------------------------------------------------------------------------
@@ -191,43 +136,6 @@ def _encode1_payload(data: bytes, freqs: np.ndarray) -> bytes:
     for j in (3, 2, 1, 0):
         _enc_flush(states[j], out)
     return bytes(out[::-1])
-
-
-def _decode1_payload(comp: bytes, freqs: np.ndarray, out_sz: int) -> bytes:
-    cums = np.zeros((256, 257), dtype=np.int64)
-    np.cumsum(freqs, axis=1, out=cums[:, 1:])
-    sym_of = np.zeros((256, TOTFREQ), dtype=np.uint8)
-    for c in range(256):
-        f = freqs[c]
-        for s in np.flatnonzero(f):
-            sym_of[c, cums[c, s]:cums[c, s + 1]] = s
-    states = list(struct.unpack_from("<4I", comp, 0))
-    ptr = 16
-    isz4 = out_sz >> 2
-    out = bytearray(out_sz)
-    ctx = [0, 0, 0, 0]
-    pos = [0, isz4, 2 * isz4, 3 * isz4]
-
-    def step(j):
-        nonlocal ptr
-        x = states[j]
-        slot = x & (TOTFREQ - 1)
-        s = int(sym_of[ctx[j], slot])
-        out[pos[j]] = s
-        x = int(freqs[ctx[j], s]) * (x >> TF_SHIFT) + slot - int(cums[ctx[j], s])
-        while x < RANS_LOW and ptr < len(comp):
-            x = (x << 8) | comp[ptr]
-            ptr += 1
-        states[j] = x
-        ctx[j] = s
-        pos[j] += 1
-
-    for _ in range(isz4):
-        for j in range(4):
-            step(j)
-    while pos[3] < out_sz:                       # remainder: state 3
-        step(3)
-    return bytes(out)
 
 
 # ---------------------------------------------------------------------------
@@ -282,40 +190,7 @@ def compress(data: bytes, order: int = 0) -> bytes:
 
 
 def uncompress(stream: bytes) -> bytes:
-    if _native:
-        return _native.rans_uncompress(stream)
-    return _uncompress_py(stream)
-
-
-def _uncompress_py(stream: bytes) -> bytes:
-    order, comp_sz, out_sz = struct.unpack_from("<BII", stream, 0)
-    off = 9
-    if out_sz == 0:
-        return b""
-    if order == 0:
-        freqs, off = _read_freqs(stream, off)
-        return _decode0_payload(stream[off:], freqs, out_sz)
-    if order != 1:
-        raise ValueError(f"rANS order {order} not supported")
-    freqs = np.zeros((256, 256), dtype=np.int64)
-    rle = 0
-    c = stream[off]
-    off += 1
-    while True:
-        freqs[c], off = _read_freqs(stream, off)
-        if rle > 0:
-            rle -= 1
-            c += 1
-        elif stream[off] == c + 1:
-            c = stream[off]
-            rle = stream[off + 1]
-            off += 2
-        else:
-            c = stream[off]
-            off += 1
-        if c == 0:
-            break
-    return _decode1_payload(stream[off:], freqs, out_sz)
+    return _native.rans_uncompress(stream)
 
 
 __all__ = ["compress", "uncompress"]

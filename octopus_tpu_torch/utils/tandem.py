@@ -6,15 +6,9 @@ tandem.hpp extract_exact_tandem_repeats), which the error models call with
 max_period: a naive per-period scan for max_period <= 3 and the
 Kolpakov-Kucherov maximal-repetition algorithm over a Lempel-Ziv
 factorisation otherwise — the two report runs with different anchoring, so
-both are implemented in the native extension (native/octopus_native.cpp
-tandem_exact) and fuzz-verified against the reference library driven in
+both run in the host extension (csrc/octopus_native.cpp:tandem_repeats,
+tandem_exact), fuzz-verified against the reference library driven in
 place (tests/golden/golden_tandem.cpp, tests/test_tandem_golden.py).
-
-This module routes to the native implementation when built.  The pure-
-python fallback ports the naive algorithm exactly (max_period <= 3) and
-keeps a close approximation for larger periods (primitive-motif maximal
-eq-runs) — a documented deviation that only matters when the native
-extension is unavailable.
 """
 
 from __future__ import annotations
@@ -23,9 +17,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
-# native single-pass scanner (csrc/octopus_native.cpp:tandem_repeats); built
-# at first use, falsy on a host without a toolchain (the python fallbacks
-# then run)
+# native single-pass scanner (csrc/octopus_native.cpp:tandem_repeats), built
+# at first use
 from .._build import NATIVE as _native
 
 
@@ -36,113 +29,16 @@ class Repeat:
     period: int
 
 
-def find_homopolymers(codes: np.ndarray) -> list[Repeat]:
-    n = len(codes)
-    if n < 2:
-        return []
-    # run starts: positions where value changes
-    change = np.flatnonzero(codes[1:] != codes[:-1]) + 1
-    starts = np.concatenate(([0], change))
-    ends = np.concatenate((change, [n]))
-    lens = ends - starts
-    keep = lens >= 2
-    return [Repeat(int(s), int(l), 1) for s, l in zip(starts[keep], lens[keep])]
-
-
-def _naive_period_runs(codes: np.ndarray, p: int) -> list[Repeat]:
-    """Exact port of the reference's naive period-p scan
-    (tandem.hpp:411-436): anchor where adjacent characters differ, extend
-    s[a+p..] against s[a..]; a match of >= p emits the run and restarts at
-    the mismatch point."""
-    n = len(codes)
-    out: list[Repeat] = []
-    if n < 2 * p:
-        return out
-    c = codes.tolist()
-    a = 0
-    while a + 1 < n and c[a] == c[a + 1]:
-        a += 1
-    if a + 1 >= n:
-        return out
-    b = a + p
-    while b < n:
-        m = 0
-        while b + m < n and c[b + m] == c[a + m]:
-            m += 1
-        if a + m >= b:
-            out.append(Repeat(a, b + m - a, p))
-            a += m
-        else:
-            a += 1
-        while a + 1 < n and c[a] == c[a + 1]:
-            a += 1
-        if a + 1 >= n:
-            break
-        b = a + p
-    return out
-
-
-def _find_period_runs(codes: np.ndarray, p: int) -> list[Repeat]:
-    """Maximal spans with s[i] == s[i+p], span length >= 2p, primitive period p."""
-    n = len(codes)
-    if n < 2 * p:
-        return []
-    eq = codes[p:] == codes[:-p]  # eq[i] = s[i] == s[i+p], length n-p
-    if not eq.any():
-        return []
-    # maximal True runs of eq
-    padded = np.concatenate(([False], eq, [False]))
-    d = np.diff(padded.astype(np.int8))
-    starts = np.flatnonzero(d == 1)
-    ends = np.flatnonzero(d == -1)  # eq-run [start, end)
-    out: list[Repeat] = []
-    for s, e in zip(starts, ends):
-        length = (e - s) + p  # total bases spanned
-        if length < 2 * p:
-            continue
-        pos = int(s)
-        # Advance the start past a leading homopolymer run, as the reference
-        # scanner anchors period-p repeats at the first position where
-        # adjacent characters differ.  Keep at least 2 full periods.
-        while (
-            pos + 1 < int(e)
-            and codes[pos] == codes[pos + 1]
-            and (pos + 1 + 2 * p) <= int(e) + p
-        ):
-            pos += 1
-        length = int(e) + p - pos
-        if length < 2 * p:
-            continue
-        motif = codes[pos:pos + p]
-        if _is_primitive(motif):
-            out.append(Repeat(pos, int(length), p))
-    return out
-
-
-def _is_primitive(motif: np.ndarray) -> bool:
-    # periods are tiny (<= 5): plain python beats numpy tile/compare here
-    m = motif.tolist()
-    p = len(m)
-    for d in range(1, p):
-        if p % d == 0 and all(m[k] == m[k % d] for k in range(p)):
-            return False
-    return True
-
-
 def extract_exact_tandem_repeats_arrays(
     codes: np.ndarray, min_period: int = 1, max_period: int = 3
 ) -> np.ndarray:
     """(n, 3) int32 [pos, length, period] rows, sorted by position —
     the array form of extract_exact_tandem_repeats (no object churn for
     hot consumers)."""
-    if _native:
-        raw = _native.tandem_repeats(
-            np.ascontiguousarray(codes, dtype=np.uint8).tobytes(),
-            int(min_period), int(max_period))
-        return np.frombuffer(raw, dtype=np.int32).reshape(-1, 3)
-    reps = extract_exact_tandem_repeats(codes, min_period, max_period)
-    return np.asarray([[r.pos, r.length, r.period] for r in reps],
-                      dtype=np.int32).reshape(-1, 3)
+    raw = _native.tandem_repeats(
+        np.ascontiguousarray(codes, dtype=np.uint8).tobytes(),
+        int(min_period), int(max_period))
+    return np.frombuffer(raw, dtype=np.int32).reshape(-1, 3)
 
 
 def extract_exact_tandem_repeats(
@@ -150,23 +46,9 @@ def extract_exact_tandem_repeats(
 ) -> list[Repeat]:
     """All maximal exact tandem repeats with primitive period in range,
     sorted by position."""
-    if _native:
-        raw = _native.tandem_repeats(
-            np.ascontiguousarray(codes, dtype=np.uint8).tobytes(),
-            int(min_period), int(max_period))
-        trip = np.frombuffer(raw, dtype=np.int32).reshape(-1, 3)
-        return [Repeat(int(p), int(l), int(q)) for p, l, q in trip]
-    out: list[Repeat] = []
-    for p in range(max(1, min_period), max_period + 1):
-        if p == 1:
-            out.extend(find_homopolymers(codes))
-        elif max_period <= 3:
-            out.extend(_naive_period_runs(codes, p))   # reference-exact
-        else:
-            out.extend(_find_period_runs(codes, p))    # approximation
-    out.sort(key=lambda r: (r.pos, r.period))
-    return out
+    trip = extract_exact_tandem_repeats_arrays(codes, min_period, max_period)
+    return [Repeat(int(p), int(l), int(q)) for p, l, q in trip]
 
 
 __all__ = ["Repeat", "extract_exact_tandem_repeats",
-           "extract_exact_tandem_repeats_arrays", "find_homopolymers"]
+           "extract_exact_tandem_repeats_arrays"]

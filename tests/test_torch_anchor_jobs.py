@@ -1,12 +1,14 @@
-"""The host extension's job gathering against its NumPy form.
+"""The host extension's job gathering against the reference's.
 
 `likelihood_array._gather_jobs` runs `gather_anchor_jobs` of the host
-extension wherever it loads, and the NumPy form (the k-mer mapper's
-`map_reads_flat`, the original offset through `np.isin`, the range rule
-and the shift) where it does not. Both must give the same (haplotype,
-read, anchor) jobs, element for element, in the same order: every later
-step (the length buckets, the host-DP gate, each launch's shape, the max
-over anchors, the cache writes) reads them as they come. The sweeps cover
+extension. The oracle here is the reference's NumPy form: its k-mer
+mapper (`read_kmer_hashes`, `HaplotypeKmerIndex.map_reads_flat`), the
+original offset through `np.isin`, the range rule and the shift as the
+reference's `_populate_sample` applies them, over groups of reads and
+haplotypes. Both must give the same (haplotype, read, anchor) jobs,
+element for element, in the same order: every later step (the length
+buckets, the host-DP gate, each launch's shape, the max over anchors, the
+cache writes) reads them as they come. The sweeps cover
 reads shorter than K, N bases, reads with no k-mer hit, low-complexity
 haplotypes with more than ten best begins, reads over either end of a
 haplotype, a need mask with fully cached haplotypes, several groups, pads
@@ -15,14 +17,15 @@ haplotype, a need mask with fully cached haplotypes, several groups, pads
 
 import numpy as np
 import pytest
-import torch
 
+from octopus_tpu.core.likelihood.kmer_mapper import (
+    HaplotypeKmerIndex,
+    read_kmer_hashes,
+)
 from octopus_tpu_torch import _build
 from octopus_tpu_torch.basics.reads import make_read_batch
 from octopus_tpu_torch.basics.sequence import decode_sequence
 from octopus_tpu_torch.core.likelihood import likelihood_array as la
-
-CPU = torch.device("cpu")
 
 
 @pytest.fixture(autouse=True)
@@ -30,8 +33,64 @@ def native():
     return _build.require_native()
 
 
+def reference_jobs(seq, seq_offsets, original, haplotypes, read_base,
+                   hap_base, need, pad, fault):
+    """`la._gather_jobs`'s contract, computed as the reference's
+    `_populate_sample` computes one group's jobs."""
+    hashes_flat, hash_offsets = read_kmer_hashes(seq, seq_offsets)
+    lens = np.diff(seq_offsets)
+    jh_parts, jr_parts, jp_parts = [], [], []
+    for g in range(len(read_base) - 1):
+        r0, r1 = int(read_base[g]), int(read_base[g + 1])
+        ho = hash_offsets[r0:r1 + 1]
+        local_hashes = hashes_flat[ho[0]:ho[-1]]
+        local_offsets = ho - ho[0]
+        local_orig = original[r0:r1]
+        local_lens = lens[r0:r1]
+        nr = r1 - r0
+        if nr == 0:
+            continue
+        loc_reads = np.arange(nr)
+        for h in range(int(hap_base[g]), int(hap_base[g + 1])):
+            hap_len = len(haplotypes[h])
+            need_h = np.ones(nr, bool) if need is None else need[h, r0:r1]
+            if not need_h.any():
+                continue
+            read_of, begin = HaplotypeKmerIndex(haplotypes[h]).map_reads_flat(
+                local_hashes, local_offsets)
+            M = max(hap_len, int(local_orig.max()) + 1) + 2
+            have = np.isin(loc_reads * M + local_orig, read_of * M + begin)
+            missing = np.flatnonzero(~have)
+            if len(missing):
+                read_of = np.concatenate([read_of, missing])
+                begin = np.concatenate([begin, local_orig[missing]])
+            sel = need_h[read_of]
+            read_of, begin = read_of[sel], begin[sel]
+            ok = (begin >= pad) & (begin + local_lens[read_of] <= hap_len)
+            cnt_ok = np.bincount(read_of[ok], minlength=nr)
+            none_r = np.flatnonzero(need_h & (cnt_ok == 0))
+            read_of, begin = read_of[ok], begin[ok]
+            if len(none_r):
+                pos = np.maximum(local_orig[none_r], pad)
+                over = pos + local_lens[none_r] - hap_len
+                pos = np.where(over > 0, pos - over, pos)
+                bad = (pos < pad) | (pos + local_lens[none_r] > hap_len)
+                if bad.any():
+                    raise la.ShortHaplotypeError(
+                        fault(h, r0 + int(none_r[np.argmax(bad)])))
+                read_of = np.concatenate([read_of, none_r])
+                begin = np.concatenate([begin, pos])
+            jh_parts.append(np.full(len(read_of), h, np.int64))
+            jr_parts.append(read_of.astype(np.int64) + r0)
+            jp_parts.append(begin.astype(np.int64))
+    empty = np.zeros(0, np.int64)
+    return (np.concatenate(jh_parts) if jh_parts else empty,
+            np.concatenate(jr_parts) if jr_parts else empty,
+            np.concatenate(jp_parts) if jp_parts else empty)
+
+
 def numpy_form(monkeypatch):
-    monkeypatch.setattr(la, "_gather_native", lambda device: None)
+    monkeypatch.setattr(la, "_gather_jobs", reference_jobs)
 
 
 def mutate(rng, codes, n_snvs):
@@ -105,7 +164,7 @@ def fault(h, r):
 
 
 def gather(case, need, pad):
-    return la._gather_jobs(CPU, case["seq"], case["seq_offsets"],
+    return la._gather_jobs(case["seq"], case["seq_offsets"],
                            case["original"], case["haplotypes"],
                            case["read_base"], case["hap_base"], need, pad,
                            fault)
@@ -154,8 +213,8 @@ def test_native_jobs_equal_the_numpy_form_under_a_need_mask(seed, pad,
 
 @pytest.mark.parametrize("seed", range(2))
 def test_long_reads_against_long_haplotypes(seed, monkeypatch):
-    """5-15 kb reads against haplotypes of tens of kb: the NumPy form takes
-    its sparse vote path there (reads x begins above 2**21)."""
+    """5-15 kb reads against haplotypes of tens of kb: the reference's
+    mapper takes its sparse vote path there (reads x begins above 2**21)."""
     case = make_groups(50 + seed, 16, n_groups=1, hap_lens=(28000, 32000),
                        n_reads=(80, 85), read_lens=(5000, 15000))
     assert len(case["original"]) * (28000 - 6) > (1 << 21)

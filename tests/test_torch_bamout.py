@@ -81,7 +81,8 @@ def test_native_banded_traceback_equals_the_reference(pad):
     seeded reads with mismatches, Ns and tied gap penalties."""
     from octopus_tpu.core.likelihood import pairhmm_ref as ref_ph
     from octopus_tpu_torch.core.likelihood import pairhmm_ref as ph
-    assert ph._native, "the host extension runs the traceback"
+    assert callable(ph._native.banded_traceback), \
+        "the host extension runs the traceback"
     rng = np.random.default_rng(pad)
     for trial in range(30):
         R = int(rng.integers(1, 160))

@@ -6,6 +6,10 @@ included) and chip_smoke.py; a subprocess runs a small port call, loads the
 forest, training and clustering CSR, the standalone CSR, the evidence-BAM
 realigner, the CRAM modules and the kernel experiments' ports (running the
 int16 probe's plain version), and then inspects sys.modules.
+
+The host extension is one requirement of the whole port, decided in
+_build.py: no other module tests it for truth or probes it, and a CPU run
+without it fails at start-up with the build error.
 """
 
 import ast
@@ -13,6 +17,9 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+
+import numpy as np
+import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "octopus_tpu_torch").rglob("*.py")) + [
@@ -104,3 +111,78 @@ def test_port_run_loads_no_jax_and_no_reference_module():
     assert proc.returncode == 0, proc.stderr
     assert "LEAKED []" in proc.stdout, proc.stdout
     assert "NATIVE True" in proc.stdout, proc.stdout
+
+
+def _extension_probes(tree: ast.AST) -> list[int]:
+    """Lines that test the host extension for truth, compare it with None,
+    probe it with hasattr, or call load_native (which returns None where
+    the build failed)."""
+    ext = set()
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.ImportFrom)
+                and (node.module or "").split(".")[-1] == "_build"):
+            ext |= {a.asname or a.name for a in node.names
+                    if a.name in ("NATIVE", "load_native", "require_native")}
+
+    def is_ext(expr):
+        if isinstance(expr, ast.Call):
+            expr = expr.func
+        return isinstance(expr, ast.Name) and expr.id in ext
+
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Assign) and is_ext(node.value):
+            ext |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+    lines = []
+    for node in ast.walk(tree):
+        tests = []
+        if isinstance(node, (ast.If, ast.While, ast.IfExp, ast.Assert)):
+            tests.append(node.test)
+        elif isinstance(node, ast.BoolOp):
+            tests += node.values
+        elif isinstance(node, ast.UnaryOp) and isinstance(node.op, ast.Not):
+            tests.append(node.operand)
+        elif isinstance(node, ast.Compare):
+            tests += [node.left, *node.comparators]
+        elif (isinstance(node, ast.Call) and isinstance(node.func, ast.Name)
+              and node.func.id in ("hasattr", "getattr", "bool")
+              and node.args):
+            tests.append(node.args[0])
+        elif isinstance(node, ast.Name) and node.id == "load_native":
+            lines.append(node.lineno)
+        lines += [node.lineno for t in tests if is_ext(t)]
+    return sorted(set(lines))
+
+
+def test_only_build_decides_whether_the_extension_is_there():
+    found = {}
+    for path in sorted((ROOT / "octopus_tpu_torch").rglob("*.py")):
+        if path.name == "_build.py":
+            continue
+        lines = _extension_probes(ast.parse(path.read_text()))
+        if lines:
+            found[str(path.relative_to(ROOT))] = lines
+    assert not found, found
+
+
+@pytest.mark.parametrize("made", ["likelihood_array", "caller"])
+def test_a_cpu_run_without_the_extension_fails_at_start_up(made, tmp_path,
+                                                           monkeypatch):
+    """A box without g++: no built extension and no compiler on PATH."""
+    from octopus_tpu_torch import _build
+    from octopus_tpu_torch.core.callers.base import BaseCallerConfig
+    from octopus_tpu_torch.core.callers.individual import IndividualCaller
+    from octopus_tpu_torch.core.likelihood import likelihood_array as la
+    from octopus_tpu_torch.io.fasta import InMemoryReference, ReferenceGenome
+
+    monkeypatch.setattr(_build, "_native", None)
+    monkeypatch.setattr(_build, "_native_error", None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match=(
+            r"^host extension unavailable: _native: cannot run g\+\+")):
+        if made == "likelihood_array":
+            la.HaplotypeLikelihoodArray(la.LikelihoodConfig(device="cpu"))
+        else:
+            ref = ReferenceGenome(InMemoryReference(
+                {"chr1": np.zeros(100, np.uint8)}))
+            IndividualCaller(ref, "chr1", BaseCallerConfig(device="cpu"))

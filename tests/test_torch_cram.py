@@ -73,9 +73,9 @@ def test_rans_roundtrip_orders():
             stream = rans.compress(d, order)
             assert stream == ref_rans.compress(d, order)
             assert rans.uncompress(stream) == d
-            assert rans._uncompress_py(stream) == d
             assert ref_rans.uncompress(stream) == d
-    assert rans._native, "the host extension decodes rANS"
+    assert callable(rans._native.rans_uncompress), \
+        "the host extension decodes rANS"
 
 
 def test_core_codecs_decode():

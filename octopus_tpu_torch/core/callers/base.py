@@ -32,7 +32,8 @@ from ..hapgen.generator import (
     group_exclusive_sites,
     propose_active_regions,
 )
-from ..likelihood.likelihood_array import (FlankState,
+from ..likelihood.likelihood_array import (ROUTING,
+                                           FlankState,
                                            HaplotypeLikelihoodArray,
                                            LikelihoodConfig,
                                            ShortHaplotypeError,
@@ -42,7 +43,7 @@ from ..models.individual import logsumexp
 from ..tools.phaser import Phaser
 from ..types.haplotypes import Haplotype
 from ..types.variants import Variant
-from ..vargen.cigar_scanner import CigarScanner, ScannerOptions
+from ..vargen.cigar_scanner import ScannerOptions
 from ..vargen.generator import VariantGenerator, VariantGeneratorConfig
 from ..vargen.assembler import AssemblerOptions
 
@@ -183,6 +184,7 @@ class CallerBase:
             for s, batch in enumerate(reads_by_sample):
                 vargen.add_reads(s, batch)
             candidates = vargen.generate(region_begin, region_end)
+        ROUTING.record_candidates(len(candidates))
         if not candidates:
             return []
         from ..tools.bad_region_detector import (BadRegionConfig, Severity,

@@ -80,13 +80,16 @@ class RoutingCounts:
     allele_support_context), a read once for each allele it was credited to.
     native_gathers counts the calls of the host extension's
     gather_anchor_jobs, one a populate's sample or a pad group of
-    assignment blocks."""
+    assignment blocks. candidates counts the candidate variants that
+    candidate generation (core/vargen/) returned to the caller, summed over
+    windows."""
 
     job_sets: Counter = field(default_factory=Counter)
     pairs: Counter = field(default_factory=Counter)
     shortcut_pairs: int = 0
     tied_reads_credited: int = 0
     native_gathers: int = 0
+    candidates: int = 0
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False,
                                   compare=False)
 
@@ -106,6 +109,10 @@ class RoutingCounts:
     def record_native_gather(self) -> None:
         with self._lock:
             self.native_gathers += 1
+
+    def record_candidates(self, n: int) -> None:
+        with self._lock:
+            self.candidates += n
 
     def _total(self, counter: Counter, host: bool) -> int:
         return sum(v for (_, scorer), v in counter.items()
@@ -134,6 +141,7 @@ class RoutingCounts:
             self.shortcut_pairs = 0
             self.tied_reads_credited = 0
             self.native_gathers = 0
+            self.candidates = 0
 
 
 ROUTING = RoutingCounts()

@@ -1,1 +1,1 @@
-from .cigar_scanner import CigarScanner, ScannerOptions
+from .cigar_scanner import ScannerOptions

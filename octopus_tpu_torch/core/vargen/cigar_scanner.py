@@ -1,4 +1,5 @@
-"""Candidate variant generation by CIGAR/pileup scanning.
+"""Candidate variant generation by CIGAR/pileup scanning: its options and
+the inclusion predicates that stay in Python.
 
 Capability-equivalent to the reference's CigarScanner
 (src/core/tools/vargen/cigar_scanner.{hpp,cpp}): walks each read's alignment
@@ -9,25 +10,27 @@ and applies the reference's inclusion heuristics (is_good_germline /
 is_good_somatic, cigar_scanner.cpp:500-700) over depth, strand and
 base-quality stats.
 
-Batch design: reads arrive as ReadBatch SoA; one call of the host
-extension walks every read of a batch (scan_cigar_reads); coverage uses
-difference arrays.
+Batch design: the scan runs in the host extension's generate_candidates,
+one call a window over every sample's reads (generator.py). It groups the
+observations by (begin, end, alt), takes each sample's depths from
+difference arrays over the reads' spans, and applies the germline,
+threshold and PacBio predicates itself. The somatic and cell predicates
+take scipy's beta tail: for them the call returns every group with its
+per-sample statistics, and `included_by_caller` decides here.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 
 import numpy as np
 
-from ...basics.reads import ReadBatch
 from ..types.variants import Variant
 
-# native whole-batch scan (csrc/octopus_native.cpp:scan_cigar_reads), built
-# at first use
-from ..._build import NATIVE as _native
+# generate_candidates' inclusion codes; 3: the groups come back to Python
+_INCLUSION = {"germline": 0, "threshold": 1, "pacbio": 2, "somatic": 3, "cell": 3}
 
 
 @dataclass
@@ -55,194 +58,55 @@ class ScannerOptions:
     min_bq: int = 20
     normal_sample: int | None = None
 
+    def native_args(self, use: bool) -> tuple:
+        """The scanner's tuple of generate_candidates; `use` false skips
+        the scan."""
+        if self.inclusion not in _INCLUSION:
+            raise ValueError(f"unknown inclusion predicate {self.inclusion}")
+        return (int(use), int(self.snv_threshold), float(self.snv_penalty),
+                float(self.indel_penalty), float(self.clip_penalty),
+                int(self.max_unpenalised_clip_size), int(self.max_variant_size),
+                int(bool(self.use_misalignment_filter)),
+                float(self.max_expected_mutation_rate),
+                float(self.min_ln_prob_correctly_aligned),
+                _INCLUSION[self.inclusion], int(self.copy_number),
+                int(bool(self.allow_strand_bias)), int(self.min_observations))
 
-@dataclass
-class _Candidate:
-    begin: int
-    end: int
-    ref: bytes
-    alt: bytes
-    sample: int
-    forward: bool
-    sum_alt_quals: int
-    at_edge: bool
-    mapq: int
-    misaligned: bool
 
+def included_by_caller(groups: bytes, seqs: bytes, rows: bytes, quals: bytes,
+                       opt: ScannerOptions) -> list[Variant]:
+    """The scanner's groups that the somatic or cell predicate includes.
 
-class CigarScanner:
-    """Accumulates reads (per sample), then generates candidate variants."""
-
-    def __init__(self, reference, contig: str, options: ScannerOptions | None = None):
-        self.reference = reference
-        self.contig = contig
-        self.options = options or ScannerOptions()
-        self._candidates: list[_Candidate] = []
-        self._cov: dict[int, dict[int, int]] = {}
-        self._cov_events: list[tuple[int, int, int, int, bool]] = []  # sample, b, e, +-, fwd
-        self._n_samples = 0
-
-    def clear(self) -> None:
-        self._candidates.clear()
-        self._cov_events.clear()
-
-    # -- scanning ----------------------------------------------------------
-
-    def add_reads(self, sample: int, batch: ReadBatch) -> None:
-        """One native call scans the whole batch: each read's mismatches,
-        insertions and deletions, and its misalignment penalty."""
-        self._n_samples = max(self._n_samples, sample + 1)
-        if len(batch) == 0:
-            return
-        opt = self.options
-        chunk_begin = int(batch.begins.min())
-        ref_chunk = self.reference.fetch_codes(self.contig, chunk_begin,
-                                               int(batch.ends.max()))
-        is_fwd = ~batch.is_reverse()
-        raw = _native.scan_cigar_reads(
-            np.ascontiguousarray(ref_chunk, np.uint8).tobytes(),
-            chunk_begin,
-            np.ascontiguousarray(batch.begins, np.int64).tobytes(),
-            np.ascontiguousarray(batch.ends, np.int64).tobytes(),
-            np.ascontiguousarray(batch.mapq, np.uint8).tobytes(),
-            np.ascontiguousarray(batch.seq, np.uint8).tobytes(),
-            np.ascontiguousarray(batch.quals, np.uint8).tobytes(),
-            np.ascontiguousarray(batch.seq_offsets, np.int64).tobytes(),
-            np.ascontiguousarray(batch.cigar_ops, np.int32).tobytes(),
-            np.ascontiguousarray(batch.cigar_offsets, np.int64).tobytes(),
-            int(opt.snv_threshold), float(opt.snv_penalty),
-            float(opt.indel_penalty), float(opt.clip_penalty),
-            int(opt.max_unpenalised_clip_size), int(opt.max_variant_size),
-            int(bool(opt.use_misalignment_filter)),
-            float(opt.max_expected_mutation_rate),
-            float(opt.min_ln_prob_correctly_aligned))
-        rec = np.frombuffer(raw, dtype=np.dtype([
-            ("read", np.int32), ("offset", np.int32), ("alt_len", np.int32),
-            ("sum_q", np.int32), ("begin", np.int64), ("end", np.int64),
-            ("at_edge", np.uint8), ("misaligned", np.uint8),
-            ("pad", np.uint8, 6)]))
-        seq = batch.seq
-        soff = batch.seq_offsets
-        mapq = batch.mapq
-        begins_arr = batch.begins
-        append = self._candidates.append
-        for c in rec:
-            r = int(c["read"])
-            b, e = int(c["begin"]), int(c["end"])
-            alt_len = int(c["alt_len"])
-            o = int(soff[r]) + int(c["offset"])
-            alt = seq[o:o + alt_len].tobytes()
-            ref = ref_chunk[b - chunk_begin:e - chunk_begin].tobytes()
-            append(_Candidate(b, e, ref, alt, sample, bool(is_fwd[r]),
-                              int(c["sum_q"]), bool(c["at_edge"]),
-                              int(mapq[r]), bool(c["misaligned"])))
-        for r in range(len(batch)):
-            self._cov_events.append((sample, int(begins_arr[r]),
-                                     int(batch.ends[r]), 1, bool(is_fwd[r])))
-
-    # -- generation --------------------------------------------------------
-
-    def generate(self, region_begin: int, region_end: int) -> list[Variant]:
-        """Candidate variants overlapping [region_begin, region_end)."""
-        if not self._candidates:
-            return []
-        # coverage arrays per sample over the scanned span
-        lo = min(c[1] for c in self._cov_events)
-        hi = max(c[2] for c in self._cov_events)
-        n = hi - lo + 1
-        cov = np.zeros((self._n_samples, n), np.int64)
-        fwd_cov = np.zeros((self._n_samples, n), np.int64)
-        total_cov = np.zeros(n, np.int64)
-        for sample, b, e, d, forward in self._cov_events:
-            cov[sample, b - lo] += d
-            cov[sample, e - lo] -= d
-            total_cov[b - lo] += d
-            total_cov[e - lo] -= d
-            if forward:
-                fwd_cov[sample, b - lo] += d
-                fwd_cov[sample, e - lo] -= d
-        cov = np.cumsum(cov, axis=1)
-        fwd_cov = np.cumsum(fwd_cov, axis=1)
-        total_cov = np.cumsum(total_cov)
-
-        def min_depth(arr, b, e):
-            b = max(b - lo, 0)
-            e = max(e - lo, b + 1)
-            return int(arr[b:e].min()) if e <= len(arr) else int(arr[b:].min())
-
-        groups: dict[tuple, list[_Candidate]] = {}
-        for c in self._candidates:
-            if c.misaligned:
-                continue
-            if c.begin >= region_end or c.end <= region_begin:
-                if not (c.begin == c.end == region_begin):
-                    continue
-            groups.setdefault((c.begin, c.end, c.ref, c.alt), []).append(c)
-
-        out: list[Variant] = []
-        for (b, e, ref, alt), obs in sorted(groups.items()):
-            v = Variant(b, e, ref, alt)
-            if self._include(v, obs, cov, fwd_cov, total_cov, lo, min_depth):
-                out.append(v)
-        return out
-
-    # -- inclusion heuristics ---------------------------------------------
-
-    def _include(self, v, obs, cov, fwd_cov, total_cov, lo, min_depth) -> bool:
-        opt = self.options
-        by_sample: dict[int, list[_Candidate]] = {}
-        for c in obs:
-            by_sample.setdefault(c.sample, []).append(c)
-        if opt.inclusion == "threshold":
-            return len(obs) >= opt.min_observations
-        sample_stats = []
-        for s, cands in by_sample.items():
-            depth = max(min_depth(cov[s], v.begin, v.end), len(cands))
-            fdepth = min_depth(fwd_cov[s], v.begin, v.end)
-            quals = [c.sum_alt_quals for c in cands]
-            fsupport = sum(1 for c in cands if c.forward)
-            esupport = sum(1 for c in cands if c.at_edge)
-            sample_stats.append((s, depth, fdepth, quals, fsupport, esupport))
-        if opt.inclusion == "germline":
-            if any(_is_good_germline(v, d, fd, fs, list(q), opt.copy_number,
-                                     opt.allow_strand_bias)
-                   for _, d, fd, q, fs, _ in sample_stats):
-                return True
-            if len(sample_stats) > 1:
-                tot_d = min_depth(total_cov, v.begin, v.end)
-                tot_fd = sum(st[2] for st in sample_stats)
-                tot_q = [q for st in sample_stats for q in st[3]]
-                tot_fs = sum(st[4] for st in sample_stats)
-                return _is_good_germline(v, tot_d, tot_fd, tot_fs, tot_q,
-                                         opt.copy_number, opt.allow_strand_bias)
-            return False
-        if opt.inclusion == "somatic":
-            for s, d, fd, q, fs, es in sample_stats:
-                if opt.normal_sample is not None and s == opt.normal_sample:
-                    if _is_good_germline(v, d, fd, fs, list(q), opt.copy_number,
-                                         opt.allow_strand_bias):
-                        return True
-                elif _is_good_somatic(v, d, fd, fs, es, list(q),
-                                      opt.min_vaf, opt.min_probability,
-                                      opt.min_bq, opt.allow_strand_bias):
-                    return True
-            return False
-        if opt.inclusion == "cell":
-            return any(_is_good_somatic(v, d, fd, fs, es, list(q), 0.2, 0.5, 15,
+    generate_candidates' groups, int64 (begin, end, ref_len, alt_len, row0,
+    row1) with their ref and alt bytes in `seqs`; each row, int64 (sample,
+    depth, fwd_depth, fwd_support, edge_support, q0, q1), a sample's
+    observations of the group, and quals[q0:q1] (int32) their sums of alt
+    base qualities. A group is included where any sample's predicate holds
+    (under `somatic`, the normal sample's is the germline one)."""
+    out = []
+    rows = np.frombuffer(rows, np.int64).reshape(-1, 7).tolist()
+    quals = np.frombuffer(quals, np.int32).tolist()
+    off = 0
+    for b, e, n_ref, n_alt, r0, r1 in (
+            np.frombuffer(groups, np.int64).reshape(-1, 6).tolist()):
+        v = Variant(b, e, seqs[off:off + n_ref], seqs[off + n_ref:off + n_ref + n_alt])
+        off += n_ref + n_alt
+        for s, d, fd, fs, es, q0, q1 in rows[r0:r1]:
+            q = quals[q0:q1]
+            if opt.inclusion == "cell":
+                good = _is_good_somatic(v, d, fd, fs, es, q, 0.2, 0.5, 15,
                                         opt.allow_strand_bias)
-                       for _, d, fd, q, fs, es in sample_stats)
-        if opt.inclusion == "pacbio":
-            # PacBioInclusionPredicate (cigar_scanner.cpp:734-799): VAF
-            # thresholds tiered by variant class/size, any sample or pooled
-            if any(_is_good_pacbio(v, d, list(q))
-                   for _, d, _, q, _, _ in sample_stats):
-                return True
-            if len(sample_stats) > 1:
-                tot_d = min_depth(total_cov, v.begin, v.end)
-                tot_q = [q for st in sample_stats for q in st[3]]
-                return _is_good_pacbio(v, tot_d, tot_q)
-            return False
-        raise ValueError(f"unknown inclusion predicate {opt.inclusion}")
+            elif opt.normal_sample is not None and s == opt.normal_sample:
+                good = _is_good_germline(v, d, fd, fs, q, opt.copy_number,
+                                         opt.allow_strand_bias)
+            else:
+                good = _is_good_somatic(v, d, fd, fs, es, q, opt.min_vaf,
+                                        opt.min_probability, opt.min_bq,
+                                        opt.allow_strand_bias)
+            if good:
+                out.append(v)
+                break
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -296,41 +160,6 @@ def _is_tandem_repeat_seq(codes: np.ndarray, max_period: int = 4) -> bool:
     return False
 
 
-def _is_good_pacbio(v: Variant, depth, quals) -> bool:
-    """is_good_pacbio (cigar_scanner.cpp:734-770): support/VAF tiers by
-    variant class and size — noisy long reads need VAF evidence, not base
-    qualities."""
-    support = len(quals)
-    vaf = support / max(depth, 1)
-    if v.is_insertion():
-        alt_size = len(v.alt_codes)
-        if alt_size > 500:
-            return True
-        if alt_size > 200:
-            return vaf > 0.02
-        if alt_size > 20:
-            return vaf > 0.05
-        if support < 2:
-            return False
-        if alt_size <= 2:
-            return vaf > 0.2
-        if alt_size < 4:
-            return vaf > 0.1
-        return vaf > 0.05
-    if v.is_deletion() or (v.end - v.begin) > 1:     # deletion or mnv
-        size = v.end - v.begin
-        if size > 50:
-            return vaf > 0.1
-        if support < 2:
-            return False
-        if size <= 2:
-            return vaf > 0.2
-        if size < 4:
-            return vaf > 0.1
-        return vaf > 0.05
-    return support > 1 and vaf > 0.1                 # snv
-
-
 def _is_good_germline(v: Variant, depth, fwd_depth, fwd_support, quals,
                       copy_number=2, allow_strand_bias=False) -> bool:
     support = len(quals)
@@ -338,11 +167,11 @@ def _is_good_germline(v: Variant, depth, fwd_depth, fwd_support, quals,
         return support > 1 or sum(quals) >= 30 or v.is_deletion()
     rev_support = support - fwd_support
     rev_depth = depth - fwd_depth
-    if not allow_strand_bias:
-        bias = _strand_bias(fwd_support, fwd_depth, rev_support, rev_depth)
-        if (support > 20 and bias > 0.99
-                and _only_one_strand(fwd_support, rev_support)):
-            return False
+    # the strand-bias test decides only here
+    if (not allow_strand_bias and support > 20
+            and _only_one_strand(fwd_support, rev_support)
+            and _strand_bias(fwd_support, fwd_depth, rev_support, rev_depth) > 0.99):
+        return False
     if v.is_snv():
         if _is_runthrough_artifact(fwd_support, rev_support, quals):
             return False
@@ -414,8 +243,9 @@ def _is_good_somatic(v: Variant, depth, fwd_depth, fwd_support, edge_support,
         if len(good) <= edge_support:
             return False
         good_support = len(good) - edge_support
-        p = _beta_sf(good_support, depth - good_support, min_vaf)
-        return good_support > 1 and p >= min_probability and edge_support < support
+        return (good_support > 1 and edge_support < support
+                and _beta_sf(good_support, depth - good_support, min_vaf)
+                >= min_probability)
     if v.is_insertion():
         alt_size = len(v.alt)
         if support == 1 and alt_size > 8:
@@ -423,10 +253,9 @@ def _is_good_somatic(v: Variant, depth, fwd_depth, fwd_support, edge_support,
         good = [q for q in quals if q >= min_bq]
         if len(good) > 1 and alt_size > 10:
             return True
-        p = _beta_sf(len(good), depth - len(good), min_vaf)
-        return len(good) > 1 and p >= min_probability
-    p = _beta_sf(support, depth - support, min_vaf)
-    return support > 1 and p >= min_probability
+        return (len(good) > 1
+                and _beta_sf(len(good), depth - len(good), min_vaf) >= min_probability)
+    return support > 1 and _beta_sf(support, depth - support, min_vaf) >= min_probability
 
 
-__all__ = ["CigarScanner", "ScannerOptions"]
+__all__ = ["ScannerOptions", "included_by_caller"]

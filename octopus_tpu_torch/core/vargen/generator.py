@@ -3,18 +3,34 @@
 Capability-equivalent to the reference's VariantGenerator composite
 (src/core/tools/vargen/variant_generator.{hpp,cpp}) aggregating CigarScanner,
 LocalReassembler, RepeatScanner and VcfExtractor proposals with merge+dedup.
+
+The CIGAR scanner and the reassembler run in one call of the host extension
+a window (generate_candidates, its `vargen_native` phase), over every
+sample's reads; the repeat scanner, the randomiser and the source VCF run
+here and merge after it.
 """
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass, field
 
+import numpy as np
+
+from ..._build import NATIVE as _native
 from ...basics.reads import ReadBatch
+from ...utils import timers
 from ..types.variants import Variant, left_align
-from .assembler import AssemblerOptions, LocalReassembler
+from .assembler import AssemblerOptions
 from .repeat_scanner import RepeatScanner, RepeatScannerOptions
-from .cigar_scanner import CigarScanner, ScannerOptions
+from .cigar_scanner import ScannerOptions, included_by_caller
 from .randomiser import Randomiser, RandomiserOptions
+
+_log = logging.getLogger("octopus_tpu_torch")
+
+# reference bases held left of the window's reads and bins for the left
+# alignment of indels; one that runs past them finishes in Python
+LEFT_CONTEXT = 4096
 
 
 @dataclass
@@ -41,9 +57,6 @@ class VariantGenerator:
         self.reference = reference
         self.contig = contig
         self.config = config or VariantGeneratorConfig()
-        self._scanner = CigarScanner(reference, contig, self.config.scanner)
-        self._assembler = (LocalReassembler(reference, contig, self.config.assembler)
-                           if self.config.use_assembler else None)
         self._repeat_scanner = (RepeatScanner(reference, contig, self.config.repeat_scanner)
                                 if self.config.use_repeat_scanner else None)
         self._randomiser = (Randomiser(reference, contig, self.config.randomiser)
@@ -51,11 +64,9 @@ class VariantGenerator:
         self._batches: list[tuple[int, ReadBatch]] = []
 
     def add_reads(self, sample: int, batch: ReadBatch) -> None:
-        self._scanner.add_reads(sample, batch)
         if self._randomiser is not None:
             self._randomiser.add_reads(sample, batch)
-        if self._assembler is not None or self._repeat_scanner is not None:
-            self._batches.append((sample, batch))
+        self._batches.append((sample, batch))
 
     def generate(self, begin: int, end: int) -> list[Variant]:
         # all indels are left-aligned before dedup: generators observe the
@@ -68,16 +79,7 @@ class VariantGenerator:
         def norm(v: Variant) -> Variant:
             return left_align(v, fetch) if v.is_indel() else v
 
-        out: dict[Variant, None] = {}
-        if self.config.use_pileup_scanner:
-            for v in self._scanner.generate(begin, end):
-                out.setdefault(norm(v))
-        if self._assembler is not None:
-            for sample, batch in self._batches:
-                for v in self._assembler.generate(batch, begin, end):
-                    if v.end - v.begin <= max(self.config.max_variant_size,
-                                              self.config.assembler.max_variant_size):
-                        out.setdefault(norm(v))
+        out: dict[Variant, None] = dict.fromkeys(self._native(begin, end, fetch))
         if self._repeat_scanner is not None:
             for sample, batch in self._batches:
                 for v in self._repeat_scanner.generate(batch, begin, end):
@@ -89,6 +91,58 @@ class VariantGenerator:
             for v in self._from_source_vcf(begin, end):
                 out.setdefault(norm(v))
         return sorted(out, key=lambda v: (v.begin, v.end, v.alt))
+
+    def _native(self, begin: int, end: int, fetch) -> list[Variant]:
+        """The CIGAR scanner's and the reassembler's candidates, in one call
+        of the host extension: distinct, indels left-aligned."""
+        cfg = self.config
+        batches = [(s, b) for s, b in self._batches if len(b)]
+        if not batches or not (cfg.use_pileup_scanner or cfg.use_assembler):
+            return []
+        pad = max(cfg.assembler.kmer_sizes) if cfg.use_assembler else 0
+        lo = max(min(begin - pad, *(int(b.begins.min()) for _, b in batches))
+                 - LEFT_CONTEXT, 0)
+        size = self.reference.contig_size(self.contig)
+        hi = min(max(end + pad, *(int(b.ends.max()) for _, b in batches)), size)
+        reads = [(s, np.ascontiguousarray(b.begins, np.int64),
+                  np.ascontiguousarray(b.ends, np.int64),
+                  np.ascontiguousarray(b.mapq, np.uint8),
+                  np.ascontiguousarray(b.flags, np.uint16),
+                  np.ascontiguousarray(b.seq, np.uint8),
+                  np.ascontiguousarray(b.quals, np.uint8),
+                  np.ascontiguousarray(b.seq_offsets, np.int64),
+                  np.ascontiguousarray(b.cigar_ops, np.int32),
+                  np.ascontiguousarray(b.cigar_offsets, np.int64))
+                 for s, b in batches]
+        assembler = (cfg.assembler.native_args(
+            max(cfg.max_variant_size, cfg.assembler.max_variant_size))
+            if cfg.use_assembler else None)
+        with timers.phase("vargen_native"):
+            (records, seqs), groups, group_seqs, rows, quals, suppressed = (
+                _native.generate_candidates(
+                    np.ascontiguousarray(self.reference.fetch_codes(self.contig, lo, hi)),
+                    lo, size, reads, begin, end,
+                    cfg.scanner.native_args(cfg.use_pileup_scanner), assembler))
+        out = []
+        off = 0
+        for b, e, n_ref, n_alt, edge in (
+                np.frombuffer(records, np.int64).reshape(-1, 5).tolist()):
+            v = Variant(b, e, seqs[off:off + n_ref], seqs[off + n_ref:off + n_ref + n_alt])
+            off += n_ref + n_alt
+            out.append(left_align(v, fetch) if edge else v)
+        if groups:
+            out.extend(left_align(v, fetch) if v.is_indel() else v
+                       for v in included_by_caller(groups, group_seqs, rows, quals,
+                                                   cfg.scanner))
+        for i, n_dense, n in np.frombuffer(suppressed, np.int64).reshape(-1, 3).tolist():
+            # most reads of a whole region disagree with the reference:
+            # assembling every bin would manufacture noise bubbles
+            _log.warning(
+                "assembler: %d/%d reads of sample %d in %s:%d-%d are "
+                "mismatch-dense against the reference — suppressing the "
+                "clustered assembly trigger (wrong reference or unalignable "
+                "region?)", n_dense, n, batches[i][0], self.contig, begin, end)
+        return out
 
     def _from_source_vcf(self, begin: int, end: int) -> list[Variant]:
         """VcfExtractor equivalent (--source-candidates)."""
@@ -122,7 +176,6 @@ class VariantGenerator:
         return out
 
     def clear(self) -> None:
-        self._scanner.clear()
         self._batches.clear()
 
 

@@ -60,16 +60,20 @@ class RepeatScanner:
             indel_reads = batch.take(np.flatnonzero(per_read > 0))
         else:
             indel_reads = batch
-        for r_pos, r_length, r_period in reps:
+        # reads over each tract: those that begin before its end less those
+        # that end at or before its start (a read ends where or after it begins)
+        tract_begins = begin + reps[:, 0].astype(np.int64)
+        depths = (np.searchsorted(np.sort(batch.begins), tract_begins + reps[:, 1], "left")
+                  - np.searchsorted(np.sort(batch.ends), tract_begins, "right")).tolist()
+        for (r_pos, r_length, r_period), depth in zip(reps, depths):
             tract = (begin + int(r_pos), begin + int(r_pos) + int(r_length))
-            depth_of[tract] = int(((batch.begins < tract[1])
-                                   & (batch.ends > tract[0])).sum())
-            over = indel_reads.overlapping(*tract)
-            for i in range(len(over)):
-                pos = int(over.begins[i])
+            depth_of[tract] = depth
+            for i in np.flatnonzero((indel_reads.begins < tract[1])
+                                    & (indel_reads.ends > tract[0])).tolist():
+                pos = int(indel_reads.begins[i])
                 q = 0
-                seq = over.sequence(i)
-                for length, op in over.cigar(i):
+                seq = indel_reads.sequence(i)
+                for length, op in indel_reads.cigar(i):
                     length = int(length)
                     if op in (cg.M, cg.EQ, cg.X):
                         pos += length

@@ -312,261 +312,6 @@ static PyObject* rans_uncompress(PyObject*, PyObject* args) {
 }
 
 // ---------------------------------------------------------------------------
-// De-Bruijn bubble extraction (host assembler hot loop)
-//
-// Mirrors octopus_tpu/core/vargen/assembler.py:DeBruijnGraph bit-for-bit:
-// edge iteration follows Python-dict insertion order and the best-first
-// search breaks score ties by global push counter, so the extracted bubble
-// list is identical to the pure-python implementation (tested in
-// tests/test_assembler.py). Capability-equivalent to the reference's
-// Assembler bubble extraction (src/core/tools/vargen/utils/assembler.cpp).
-// ---------------------------------------------------------------------------
-
-namespace dbg {
-
-struct Edge {
-    int dst;
-    int weight;
-    bool is_ref;   // edge on the reference path
-    int ref_order; // index on the reference path, -1 otherwise
-};
-
-struct Graph {
-    int k;
-    // node id <-> (k-1)-mer
-    std::unordered_map<std::string, int> ids;
-    std::vector<std::string> kmers;
-    // adjacency preserving insertion order (Python dict semantics)
-    std::vector<std::vector<Edge>> adj;
-    std::vector<int> ref_path;       // node ids along the reference
-    std::vector<int> ref_index;      // node id -> position on ref path (-1)
-    bool valid = true;
-
-    int intern(const char* s, int len) {
-        auto it = ids.find(std::string(s, len));
-        if (it != ids.end()) return it->second;
-        int id = (int)kmers.size();
-        ids.emplace(std::string(s, len), id);
-        kmers.emplace_back(s, len);
-        adj.emplace_back();
-        return id;
-    }
-
-    Edge* find_edge(int src, int dst) {
-        for (auto& e : adj[src])
-            if (e.dst == dst) return &e;
-        return nullptr;
-    }
-
-    void insert_reference(const char* seq, Py_ssize_t n) {
-        if (n < k) { valid = false; return; }
-        std::vector<int> nodes;
-        nodes.reserve(n - k + 2);
-        for (Py_ssize_t i = 0; i + k - 1 <= n; ++i)
-            nodes.push_back(intern(seq + i, k - 1));
-        {   // reference (k-1)-mers must be unique at this k
-            std::vector<char> seen(kmers.size(), 0);
-            for (int id : nodes) {
-                if (seen[id]) { valid = false; return; }
-                seen[id] = 1;
-            }
-        }
-        ref_path = nodes;
-        for (size_t i = 0; i + 1 < nodes.size(); ++i) {
-            int src = nodes[i], dst = nodes[i + 1];
-            Edge* e = find_edge(src, dst);
-            if (!e) adj[src].push_back(Edge{dst, 0, true, (int)i});
-            else { e->is_ref = true; e->ref_order = (int)i; }
-        }
-        ref_index.assign(kmers.size(), -1);
-        for (size_t i = 0; i < ref_path.size(); ++i)
-            ref_index[ref_path[i]] = (int)i;
-    }
-
-    void insert_clean(const char* seq, Py_ssize_t n) {
-        int prev = intern(seq, k - 1);
-        for (Py_ssize_t i = 0; i + k <= n; ++i) {
-            int node = intern(seq + i + 1, k - 1);
-            if (prev >= (int)ref_index.size()) ref_index.resize(kmers.size(), -1);
-            Edge* e = find_edge(prev, node);
-            if (e) e->weight += 1;
-            else adj[prev].push_back(Edge{node, 1, false, -1});
-            prev = node;
-        }
-        if (ref_index.size() < kmers.size()) ref_index.resize(kmers.size(), -1);
-    }
-
-    void insert_read(const char* seq, Py_ssize_t n) {
-        Py_ssize_t start = 0;
-        for (Py_ssize_t i = 0; i <= n; ++i) {
-            if (i == n || (unsigned char)seq[i] == 4) {
-                if (i - start >= k) insert_clean(seq + start, i - start);
-                start = i + 1;
-            }
-        }
-    }
-
-    void prune(int min_weight) {
-        // strict threshold (see DeBruijnGraph.prune: the reference's
-        // junction leniency keeps single-read noise paths alive in this
-        // simpler pipeline)
-        for (auto& edges : adj) {
-            edges.erase(std::remove_if(edges.begin(), edges.end(),
-                                       [&](const Edge& e) {
-                                           return e.weight < min_weight && !e.is_ref;
-                                       }),
-                        edges.end());
-        }
-    }
-};
-
-struct PathEntry {
-    int node;
-    int parent;  // index into arena, -1 for root
-    int start_i; // seed position on the reference path
-    int min_w;
-    int depth;   // number of nodes on the alt path
-};
-
-struct HeapItem {
-    int score;       // min edge support along the path
-    long counter;    // global push order (FIFO tie-break)
-    int entry;       // arena index
-    bool operator<(const HeapItem& o) const {
-        // max-heap on score, then min on counter
-        if (score != o.score) return score < o.score;
-        return counter > o.counter;
-    }
-};
-
-struct Bubble {
-    int start_i, end_i;
-    std::string alt;
-    double score;
-};
-
-static bool path_contains(const std::vector<PathEntry>& arena, int entry, int node) {
-    for (int e = entry; e >= 0; e = arena[e].parent)
-        if (arena[e].node == node) return true;
-    return false;
-}
-
-static std::vector<Bubble> extract(Graph& g, int max_bubbles, double min_score,
-                                   int max_extension, long max_steps) {
-    std::vector<Bubble> out;
-    std::vector<PathEntry> arena;
-    std::priority_queue<HeapItem> heap;
-    long counter = 0;
-    for (size_t i = 0; i + 1 < g.ref_path.size(); ++i) {
-        int src = g.ref_path[i];
-        for (const Edge& e : g.adj[src]) {
-            if (e.is_ref && e.ref_order == (int)i) continue;
-            if (e.weight <= 0) continue;
-            if (counter >= max_steps) break;
-            arena.push_back(PathEntry{e.dst, -1, (int)i, e.weight, 1});
-            heap.push(HeapItem{e.weight, counter++, (int)arena.size() - 1});
-        }
-    }
-    std::set<std::tuple<int, int, std::string>> seen;
-    while (!heap.empty() && (int)out.size() < max_bubbles) {
-        HeapItem item = heap.top();
-        heap.pop();
-        const PathEntry ent = arena[item.entry];
-        int node = ent.node;
-        int ridx = node < (int)g.ref_index.size() ? g.ref_index[node] : -1;
-        if (ridx >= 0 && ridx > ent.start_i) {
-            // rejoined the reference: alt = first ref node + last char of
-            // each path node in root->leaf order
-            std::string tail(ent.depth, '\0');
-            int e = item.entry;
-            for (int d = ent.depth - 1; d >= 0; --d, e = arena[e].parent)
-                tail[d] = g.kmers[arena[e].node].back();
-            std::string alt = g.kmers[g.ref_path[ent.start_i]] + tail;
-            auto key = std::make_tuple(ent.start_i, ridx, alt);
-            if (!seen.count(key) && ent.min_w >= min_score) {
-                seen.insert(key);
-                out.push_back(Bubble{ent.start_i, ridx, alt, (double)ent.min_w});
-            }
-            continue;
-        }
-        if (ent.depth > max_extension) continue;
-        for (const Edge& e : g.adj[node]) {
-            if (e.weight <= 0 && !e.is_ref) continue;
-            if (e.dst == g.ref_path[ent.start_i] ||
-                path_contains(arena, item.entry, e.dst))
-                continue;
-            if (counter >= max_steps) break;
-            int eff = e.is_ref ? ent.min_w : std::min(ent.min_w, e.weight);
-            arena.push_back(PathEntry{e.dst, item.entry, ent.start_i, eff,
-                                      ent.depth + 1});
-            heap.push(HeapItem{eff, counter++, (int)arena.size() - 1});
-        }
-    }
-    return out;
-}
-
-}  // namespace dbg
-
-// extract_bubbles(ref: bytes, reads: list[bytes], k, min_weight, max_bubbles,
-//                 min_score, max_extension, max_steps)
-//   -> list[(start_i, end_i, alt, score)] | None
-static PyObject* extract_bubbles(PyObject*, PyObject* args) {
-    Py_buffer ref_buf;
-    PyObject* reads;
-    int k, min_weight, max_bubbles, max_extension;
-    long max_steps = 100000;
-    double min_score;
-    if (!PyArg_ParseTuple(args, "y*O!iiidi|l", &ref_buf, &PyList_Type, &reads,
-                          &k, &min_weight, &max_bubbles, &min_score,
-                          &max_extension, &max_steps))
-        return nullptr;
-    if (k < 2) {
-        PyBuffer_Release(&ref_buf);
-        PyErr_SetString(PyExc_ValueError, "k must be >= 2");
-        return nullptr;
-    }
-    std::vector<std::pair<const char*, Py_ssize_t>> read_views;
-    Py_ssize_t n_reads = PyList_GET_SIZE(reads);
-    read_views.reserve(n_reads);
-    for (Py_ssize_t i = 0; i < n_reads; ++i) {
-        PyObject* item = PyList_GET_ITEM(reads, i);
-        char* data;
-        Py_ssize_t len;
-        if (PyBytes_AsStringAndSize(item, &data, &len) < 0) {
-            PyBuffer_Release(&ref_buf);
-            return nullptr;
-        }
-        read_views.emplace_back(data, len);
-    }
-    dbg::Graph g;
-    g.k = k;
-    std::vector<dbg::Bubble> bubbles;
-    Py_BEGIN_ALLOW_THREADS
-    g.insert_reference((const char*)ref_buf.buf, ref_buf.len);
-    if (g.valid) {
-        for (auto& rv : read_views) g.insert_read(rv.first, rv.second);
-        g.prune(min_weight);
-        bubbles = dbg::extract(g, max_bubbles, min_score, max_extension,
-                               max_steps);
-    }
-    Py_END_ALLOW_THREADS
-    PyBuffer_Release(&ref_buf);
-    if (!g.valid) Py_RETURN_NONE;
-    PyObject* out = PyList_New((Py_ssize_t)bubbles.size());
-    if (!out) return nullptr;
-    for (size_t i = 0; i < bubbles.size(); ++i) {
-        const auto& b = bubbles[i];
-        PyObject* alt = PyBytes_FromStringAndSize(b.alt.data(),
-                                                  (Py_ssize_t)b.alt.size());
-        if (!alt) { Py_DECREF(out); return nullptr; }
-        PyObject* tup = Py_BuildValue("iiNd", b.start_i, b.end_i, alt, b.score);
-        if (!tup) { Py_DECREF(out); return nullptr; }
-        PyList_SET_ITEM(out, (Py_ssize_t)i, tup);
-    }
-    return out;
-}
-
-// ---------------------------------------------------------------------------
 // Exact tandem repeat finding + repeat-based error-model penalty tracks.
 //
 // Mirrors octopus_tpu.utils.tandem (itself capability-equivalent to the
@@ -1309,185 +1054,15 @@ static PyObject* decode_bam_records(PyObject*, PyObject* args) {
 }
 
 // ---------------------------------------------------------------------------
-// CIGAR candidate scan.
-//
-// Mirrors octopus_tpu.core.vargen.cigar_scanner._scan_read (reference:
-// src/core/tools/vargen/cigar_scanner.cpp:80-260) over a whole ReadBatch in
-// one call: mismatch/ins/del candidate extraction + the Poisson-tail
-// misalignment filter.  Returns packed candidate records; Python slices the
-// ref/alt byte strings from buffers it already holds.
-// ---------------------------------------------------------------------------
-
-static double poisson_lnsf(int64_t k_minus_1, double mu) {
-    // ln P(Poisson(mu) >= k), direct upper-tail sum in log space
-    // (cigar_scanner.py:_poisson_lnsf)
-    const int64_t k = k_minus_1 + 1;
-    if (mu <= 0.0) return k <= 0 ? 0.0 : -std::numeric_limits<double>::infinity();
-    const double lead = -mu + k * std::log(mu) - std::lgamma((double)k + 1.0);
-    double total = 1.0, ratio = 1.0;
-    int64_t i = k;
-    for (;;) {
-        ++i;
-        ratio *= mu / (double)i;
-        if (ratio < 1e-18) break;
-        total += ratio;
-    }
-    return std::min(lead + std::log(total), 0.0);
-}
-
-struct ScanCand {
-    int32_t read;       // read index in batch
-    int32_t offset;     // alt start offset within read
-    int32_t alt_len;
-    int32_t sum_q;
-    int64_t begin, end; // ref coordinates
-    uint8_t at_edge, misaligned;
-    uint8_t pad_[6];
-};
-
-// scan_cigar_reads(ref_chunk: u8, chunk_begin: i64,
-//                  begins: i64, ends: i64, mapq: u8,
-//                  seq: u8, quals: u8, seq_offsets: i64,
-//                  cigar_ops: i32 (total, 2), cigar_offsets: i64,
-//                  snv_threshold, snv_penalty, indel_penalty, clip_penalty,
-//                  max_unpenalised_clip, max_variant_size,
-//                  use_misalign_filter, max_expected_mutation_rate,
-//                  min_ln_prob_correctly_aligned)
-//   -> bytes of ScanCand records (48 bytes each)
-static PyObject* scan_cigar_reads(PyObject*, PyObject* args) {
-    Py_buffer ref_b, beg_b, end_b, mq_b, seq_b, qual_b, soff_b, cig_b, coff_b;
-    long long chunk_begin;
-    int snv_threshold, max_clip, use_filter;
-    long long max_var_size;
-    double snv_pen, indel_pen, clip_pen, mut_rate, min_ln_prob;
-    if (!PyArg_ParseTuple(args, "y*Ly*y*y*y*y*y*y*y*idddiLidd",
-                          &ref_b, &chunk_begin, &beg_b, &end_b, &mq_b,
-                          &seq_b, &qual_b, &soff_b, &cig_b, &coff_b,
-                          &snv_threshold, &snv_pen, &indel_pen, &clip_pen,
-                          &max_clip, &max_var_size, &use_filter,
-                          &mut_rate, &min_ln_prob))
-        return nullptr;
-    const uint8_t* ref = (const uint8_t*)ref_b.buf;
-    const Py_ssize_t ref_n = ref_b.len;
-    const int64_t* begins = (const int64_t*)beg_b.buf;
-    const int64_t* ends = (const int64_t*)end_b.buf;
-    const uint8_t* mapq = (const uint8_t*)mq_b.buf;
-    const uint8_t* seq = (const uint8_t*)seq_b.buf;
-    const uint8_t* quals = (const uint8_t*)qual_b.buf;
-    const int64_t* soff = (const int64_t*)soff_b.buf;
-    const int32_t* cig = (const int32_t*)cig_b.buf;
-    const int64_t* coff = (const int64_t*)coff_b.buf;
-    const Py_ssize_t n_reads = beg_b.len / (Py_ssize_t)sizeof(int64_t);
-    std::vector<ScanCand> out;
-    out.reserve(256);
-    Py_BEGIN_ALLOW_THREADS
-    std::vector<ScanCand> found;
-    for (Py_ssize_t r = 0; r < n_reads; ++r) {
-        const int64_t begin = begins[r], end = ends[r];
-        const uint8_t* rs = seq + soff[r];
-        const uint8_t* rq = quals + soff[r];
-        int64_t ref_i = begin;
-        int64_t read_i = 0;
-        double penalty = 0.0;
-        found.clear();
-        for (int64_t c = coff[r]; c < coff[r + 1]; ++c) {
-            const int32_t length = cig[2 * c];
-            const int32_t op = cig[2 * c + 1];
-            switch (op) {
-            case 0: case 7: case 8: {          // M, EQ, X
-                const int64_t ro = ref_i - chunk_begin;
-                for (int32_t i = 0; i < length; ++i) {
-                    if (ro + i < 0 || ro + i >= ref_n) continue;
-                    const uint8_t rb = ref[ro + i], qb = rs[read_i + i];
-                    if (rb != qb && rb != 4 && qb != 4) {
-                        found.push_back({(int32_t)r, (int32_t)(read_i + i), 1, 0,
-                                         ref_i + i, ref_i + i + 1, 0, 0, {}});
-                        if (rq[read_i + i] >= snv_threshold) penalty += snv_pen;
-                    }
-                }
-                read_i += length;
-                ref_i += length;
-                break;
-            }
-            case 1:                            // I
-                found.push_back({(int32_t)r, (int32_t)read_i, length, 0,
-                                 ref_i, ref_i, 0, 0, {}});
-                read_i += length;
-                penalty += indel_pen;
-                break;
-            case 2:                            // D
-                found.push_back({(int32_t)r, (int32_t)read_i, 0, 0,
-                                 ref_i, ref_i + length, 0, 0, {}});
-                ref_i += length;
-                penalty += indel_pen;
-                break;
-            case 4:                            // S
-                read_i += length;
-                if (length > max_clip) penalty += clip_pen;
-                break;
-            case 5:                            // H
-                if (length > max_clip) penalty += clip_pen;
-                break;
-            case 3: case 6:                    // NSKIP, P
-                ref_i += length;
-                break;
-            default:
-                break;
-            }
-        }
-        uint8_t misaligned = 0;
-        if (use_filter) {
-            const int64_t k = (int64_t)std::floor(penalty);
-            if (k > 0) {
-                const double ln_missmap = -(std::log(10.0) / 10.0) * mapq[r];
-                const double ln_mapped =
-                    mapq[r] > 0 ? std::log1p(-std::exp(ln_missmap))
-                                : -std::numeric_limits<double>::infinity();
-                const double mu = mut_rate * (double)(end - begin);
-                if (ln_mapped + poisson_lnsf(k - 1, mu) < min_ln_prob)
-                    misaligned = 1;
-            }
-        }
-        for (auto& f : found) {
-            if (f.end - f.begin > max_var_size) continue;
-            int32_t sum_q = 0;
-            for (int32_t i = 0; i < f.alt_len; ++i) sum_q += rq[f.offset + i];
-            f.sum_q = sum_q;
-            f.at_edge = (f.begin == begin || f.end == end) ? 1 : 0;
-            f.misaligned = misaligned;
-            out.push_back(f);
-        }
-    }
-    Py_END_ALLOW_THREADS
-    PyObject* result = PyBytes_FromStringAndSize(
-        (const char*)out.data(), (Py_ssize_t)(out.size() * sizeof(ScanCand)));
-    PyBuffer_Release(&ref_b); PyBuffer_Release(&beg_b); PyBuffer_Release(&end_b);
-    PyBuffer_Release(&mq_b); PyBuffer_Release(&seq_b); PyBuffer_Release(&qual_b);
-    PyBuffer_Release(&soff_b); PyBuffer_Release(&cig_b); PyBuffer_Release(&coff_b);
-    return result;
-}
-
-// ---------------------------------------------------------------------------
 // Affine-gap global alignment (GlobalAligner equivalent; reference:
-// src/core/tools/vargen/utils/global_aligner.cpp).  Mirrors
-// octopus_tpu.core.vargen.assembler.global_align exactly, including its
-// argmax tie-breaking (M before X before Y) and gap-open backtrack
-// preference.
+// src/core/tools/vargen/utils/global_aligner.cpp): argmax ties go M before
+// X before Y, and the backtrack prefers a gap open to an extension.
 // ---------------------------------------------------------------------------
 
-// global_align(a: u8, b: u8, match, mismatch, gap_open, gap_extend)
-//   -> int32-le bytes of (length, op) pairs; op: 0=M 1=I 2=D
-static PyObject* global_align_native(PyObject*, PyObject* args) {
-    Py_buffer a_b, b_b;
-    int match, mismatch, gap_open, gap_extend;
-    if (!PyArg_ParseTuple(args, "y*y*iiii", &a_b, &b_b, &match, &mismatch,
-                          &gap_open, &gap_extend))
-        return nullptr;
-    const uint8_t* a = (const uint8_t*)a_b.buf;
-    const uint8_t* b = (const uint8_t*)b_b.buf;
-    const int64_t n = a_b.len, m = b_b.len;
-    std::vector<int32_t> out_ops;
-    Py_BEGIN_ALLOW_THREADS
+// (length, op) runs from the start; op: 0=M 1=I (consumes b) 2=D (consumes a)
+static std::vector<std::pair<int32_t, int32_t>> global_align(
+    const uint8_t* a, int64_t n, const uint8_t* b, int64_t m, int match,
+    int mismatch, int gap_open, int gap_extend) {
     const int64_t NEG = -((int64_t)1 << 30);
     const int64_t w = m + 1;
     std::vector<int64_t> M((n + 1) * w, NEG), X((n + 1) * w, NEG),
@@ -1513,13 +1088,12 @@ static PyObject* global_align_native(PyObject*, PyObject* args) {
     }
     int64_t i = n, j = m;
     auto argmax3 = [](int64_t x0, int64_t x1, int64_t x2) -> int {
-        // first max wins, matching np.argmax([M, X, Y])
-        if (x0 >= x1 && x0 >= x2) return 0;
+        if (x0 >= x1 && x0 >= x2) return 0;   // first max wins
         if (x1 >= x2) return 1;
         return 2;
     };
     int state = argmax3(M[n * w + m], X[n * w + m], Y[n * w + m]);
-    std::vector<std::pair<int32_t, int32_t>> ops;  // (length, op)
+    std::vector<std::pair<int32_t, int32_t>> ops;  // (length, op), end first
     auto push = [&ops](int32_t op) {
         if (!ops.empty() && ops.back().second == op)
             ++ops.back().first;
@@ -1546,16 +1120,1292 @@ static PyObject* global_align_native(PyObject*, PyObject* args) {
             state = i > 0 ? 1 : 2;
         }
     }
-    out_ops.reserve(ops.size() * 2);
-    for (auto it = ops.rbegin(); it != ops.rend(); ++it) {
-        out_ops.push_back(it->first);
-        out_ops.push_back(it->second);
+    std::reverse(ops.begin(), ops.end());
+    return ops;
+}
+
+// global_align(a: u8, b: u8, match, mismatch, gap_open, gap_extend)
+//   -> int32-le bytes of (length, op) pairs; op: 0=M 1=I 2=D
+static PyObject* global_align_native(PyObject*, PyObject* args) {
+    Py_buffer a_b, b_b;
+    int match, mismatch, gap_open, gap_extend;
+    if (!PyArg_ParseTuple(args, "y*y*iiii", &a_b, &b_b, &match, &mismatch,
+                          &gap_open, &gap_extend))
+        return nullptr;
+    std::vector<int32_t> out_ops;
+    Py_BEGIN_ALLOW_THREADS
+    for (const auto& op : global_align((const uint8_t*)a_b.buf, a_b.len,
+                                       (const uint8_t*)b_b.buf, b_b.len, match,
+                                       mismatch, gap_open, gap_extend)) {
+        out_ops.push_back(op.first);
+        out_ops.push_back(op.second);
     }
     Py_END_ALLOW_THREADS
     PyBuffer_Release(&a_b); PyBuffer_Release(&b_b);
     return PyBytes_FromStringAndSize(
         (const char*)out_ops.data(),
         (Py_ssize_t)(out_ops.size() * sizeof(int32_t)));
+}
+
+// ---------------------------------------------------------------------------
+// Candidate generation: one call a window (core/vargen/generator.py).
+//
+// The reference's VariantGenerator runs a CigarScanner and a
+// LocalReassembler over the window's reads (src/core/tools/vargen/
+// cigar_scanner.cpp, local_reassembler.cpp, utils/assembler.cpp); here
+// both run in one call over every sample's reads:
+//
+// * the CIGAR scan: each read's mismatches, insertions and deletions, the
+//   Poisson-tail misalignment filter, observations grouped by (begin, end,
+//   alt) with each sample's depth from difference arrays, and the
+//   germline, threshold and PacBio inclusion predicates
+//   (cigar_scanner.cpp:500-799). The somatic and cell predicates take
+//   scipy's beta tail, so their groups go back to Python with their
+//   per-sample statistics;
+// * the reassembler: the indel/clip and mismatch-dense triggers, 600 bp
+//   bins with 200 bp overlap, quality masking, a de-Bruijn graph a bin and
+//   k-mer size on (k-1)-mers packed 2 bits a base, its bubbles best first,
+//   their alignment to the reference and decomposition, the fallback k
+//   ladder and the cross-k confirmation;
+// * every indel left-aligned, the union deduplicated and sorted.
+// ---------------------------------------------------------------------------
+
+namespace vargen {
+
+// contig bases [lo, hi) and the contig's length
+struct Ref {
+    const uint8_t* base;
+    int64_t lo, hi, contig_size;
+    bool has(int64_t p) const { return p >= lo && p < hi; }
+    uint8_t at(int64_t p) const { return base[p - lo]; }
+    // contig[b, e) clipped to the contig (ReferenceGenome.fetch_codes)
+    std::string slice(int64_t b, int64_t e) const {
+        b = std::max(b, lo);
+        e = std::min(std::min(e, contig_size), hi);
+        if (e <= b) return std::string();
+        return std::string((const char*)base + (b - lo), (size_t)(e - b));
+    }
+};
+
+// one ReadBatch (SoA) of one sample
+struct Batch {
+    int sample = 0;
+    Py_ssize_t n = 0;
+    const int64_t* begins = nullptr;
+    const int64_t* ends = nullptr;
+    const uint8_t* mapq = nullptr;
+    const uint16_t* flags = nullptr;
+    const uint8_t* seq = nullptr;
+    const uint8_t* quals = nullptr;
+    const int64_t* soff = nullptr;
+    const int32_t* cig = nullptr;   // (length, op) pairs
+    const int64_t* coff = nullptr;
+};
+
+struct Var {
+    int64_t begin, end;
+    std::string ref, alt;
+    bool edge = false;   // left alignment stopped at the window's reference
+    bool is_indel() const { return ref.size() != alt.size(); }
+    bool operator<(const Var& o) const {
+        return std::tie(begin, end, alt, ref) < std::tie(o.begin, o.end, o.alt, o.ref);
+    }
+    bool operator==(const Var& o) const {
+        return begin == o.begin && end == o.end && ref == o.ref && alt == o.alt;
+    }
+};
+
+// types/variants.py left_align: trim, then rotate a pure indel left over
+// the bases before it. Sets edge where the rotation reached the start of
+// the reference held here before the contig's.
+static void left_align(Var& v, const Ref& R) {
+    std::string& ref = v.ref;
+    std::string& alt = v.alt;
+    while (!ref.empty() && !alt.empty() && ref.back() == alt.back() &&
+           (ref.size() > 1 || alt.size() > 1)) {
+        ref.pop_back();
+        alt.pop_back();
+    }
+    size_t p = 0;
+    while (ref.size() - p > 1 && alt.size() - p > 1 && ref[p] == alt[p]) ++p;
+    ref.erase(0, p);
+    alt.erase(0, p);
+    v.begin += (int64_t)p;
+    if (ref.empty() != alt.empty()) {
+        std::string& longer = ref.empty() ? alt : ref;
+        const int64_t len = (int64_t)longer.size();
+        // after s steps the allele is S[-s, len - s) of S = contig[..begin) + longer
+        auto S = [&](int64_t k) -> uint8_t {
+            return k < 0 ? R.at(v.begin + k) : (uint8_t)longer[k];
+        };
+        int64_t s = 0;
+        while (v.begin - s > 0) {
+            if (!R.has(v.begin - s - 1)) { v.edge = true; break; }
+            if (S(len - 1 - s) != R.at(v.begin - s - 1)) break;
+            ++s;
+        }
+        if (s) {
+            std::string rotated((size_t)len, '\0');
+            for (int64_t k = 0; k < len; ++k) rotated[k] = (char)S(k - s);
+            longer = rotated;
+            v.begin -= s;
+        }
+    }
+    v.end = v.begin + (int64_t)ref.size();
+}
+
+// ---- CIGAR scan -----------------------------------------------------------
+
+static double poisson_lnsf(int64_t k_minus_1, double mu) {
+    // ln P(Poisson(mu) >= k), direct upper-tail sum in log space
+    const int64_t k = k_minus_1 + 1;
+    if (mu <= 0.0) return k <= 0 ? 0.0 : -std::numeric_limits<double>::infinity();
+    const double lead = -mu + k * std::log(mu) - std::lgamma((double)k + 1.0);
+    double total = 1.0, ratio = 1.0;
+    int64_t i = k;
+    for (;;) {
+        ++i;
+        ratio *= mu / (double)i;
+        if (ratio < 1e-18) break;
+        total += ratio;
+    }
+    return std::min(lead + std::log(total), 0.0);
+}
+
+// cigar_scanner._INCLUSION: the caller's predicate decides BY_CALLER groups
+enum Inclusion { GERMLINE = 0, THRESHOLD = 1, PACBIO = 2, BY_CALLER = 3 };
+
+struct ScanOptions {
+    int use = 0;
+    int snv_threshold = 20;
+    double snv_penalty = 1, indel_penalty = 1, clip_penalty = 1;
+    int max_clip = 3;
+    long long max_variant_size = 2000;
+    int use_filter = 1;
+    double mutation_rate = 0.0211, min_ln_prob = 0;
+    int inclusion = 0;   // an Inclusion
+    int copy_number = 2;
+    int allow_strand_bias = 0;
+    int min_observations = 2;
+};
+
+// one observation of a read: alt at read offset, reference [begin, end)
+struct ScanCand {
+    int32_t read, offset, alt_len, sum_q;
+    int64_t begin, end;
+    uint8_t at_edge, misaligned;
+};
+
+// cigar_scanner.cpp:80-260 over a batch: every read's mismatches (M, =, X
+// against non-N bases), insertions and deletions, with the read's
+// misalignment verdict
+static void scan_batch(const Batch& B, const Ref& R, const ScanOptions& o,
+                       std::vector<ScanCand>& out) {
+    std::vector<ScanCand> found;
+    for (Py_ssize_t r = 0; r < B.n; ++r) {
+        const int64_t begin = B.begins[r], end = B.ends[r];
+        const uint8_t* rs = B.seq + B.soff[r];
+        const uint8_t* rq = B.quals + B.soff[r];
+        int64_t ref_i = begin;
+        int64_t read_i = 0;
+        double penalty = 0.0;
+        found.clear();
+        for (int64_t c = B.coff[r]; c < B.coff[r + 1]; ++c) {
+            const int32_t length = B.cig[2 * c];
+            const int32_t op = B.cig[2 * c + 1];
+            switch (op) {
+            case 0: case 7: case 8: {          // M, EQ, X
+                for (int32_t i = 0; i < length; ++i) {
+                    const int64_t p = ref_i + i;
+                    if (!R.has(p)) continue;
+                    const uint8_t rb = R.at(p), qb = rs[read_i + i];
+                    if (rb != qb && rb != 4 && qb != 4) {
+                        found.push_back({(int32_t)r, (int32_t)(read_i + i), 1, 0,
+                                         p, p + 1, 0, 0});
+                        if (rq[read_i + i] >= o.snv_threshold) penalty += o.snv_penalty;
+                    }
+                }
+                read_i += length;
+                ref_i += length;
+                break;
+            }
+            case 1:                            // I
+                found.push_back({(int32_t)r, (int32_t)read_i, length, 0,
+                                 ref_i, ref_i, 0, 0});
+                read_i += length;
+                penalty += o.indel_penalty;
+                break;
+            case 2:                            // D
+                found.push_back({(int32_t)r, (int32_t)read_i, 0, 0,
+                                 ref_i, ref_i + length, 0, 0});
+                ref_i += length;
+                penalty += o.indel_penalty;
+                break;
+            case 4:                            // S
+                read_i += length;
+                if (length > o.max_clip) penalty += o.clip_penalty;
+                break;
+            case 5:                            // H
+                if (length > o.max_clip) penalty += o.clip_penalty;
+                break;
+            case 3: case 6:                    // NSKIP, P
+                ref_i += length;
+                break;
+            default:
+                break;
+            }
+        }
+        uint8_t misaligned = 0;
+        if (o.use_filter) {
+            const int64_t k = (int64_t)std::floor(penalty);
+            if (k > 0) {
+                const double ln_missmap = -(std::log(10.0) / 10.0) * B.mapq[r];
+                const double ln_mapped =
+                    B.mapq[r] > 0 ? std::log1p(-std::exp(ln_missmap))
+                                  : -std::numeric_limits<double>::infinity();
+                const double mu = o.mutation_rate * (double)(end - begin);
+                if (ln_mapped + poisson_lnsf(k - 1, mu) < o.min_ln_prob)
+                    misaligned = 1;
+            }
+        }
+        for (auto& f : found) {
+            if (f.end - f.begin > o.max_variant_size) continue;
+            int32_t sum_q = 0;
+            for (int32_t i = 0; i < f.alt_len; ++i) sum_q += rq[f.offset + i];
+            f.sum_q = sum_q;
+            f.at_edge = (f.begin == begin || f.end == end) ? 1 : 0;
+            f.misaligned = misaligned;
+            out.push_back(f);
+        }
+    }
+}
+
+// ---- inclusion predicates (cigar_scanner.cpp:500-799) ----------------------
+
+// exact two-sided Fisher p: the tail of hypergeometric pmfs at or below the
+// observed one (+1e-7 in log space), as cigar_scanner._fisher_two_sided_p
+static double fisher_two_sided_p(int64_t a, int64_t b, int64_t c, int64_t d) {
+    const int64_t n = a + b + c + d;
+    if (n == 0) return 1.0;
+    const int64_t r1 = a + b, r2 = c + d, c1 = a + c;
+    const int64_t lo = std::max<int64_t>(0, c1 - r2), hi = std::min(c1, r1);
+    auto lg = [](int64_t x) { return std::lgamma((double)x); };
+    const double whole = lg(n + 1) - lg(c1 + 1) - lg(n - c1 + 1);
+    auto lp = [&](int64_t x) {
+        return lg(r1 + 1) - lg(x + 1) - lg(r1 - x + 1) + lg(r2 + 1) -
+               lg(c1 - x + 1) - lg(r2 - c1 + x + 1) - whole;
+    };
+    const double p_obs = lp(a);
+    double total = 0.0;
+    for (int64_t x = lo; x <= hi; ++x) {
+        const double l = lp(x);
+        if (l <= p_obs + 1e-7) total += std::exp(l);
+    }
+    return std::min(total, 1.0);
+}
+
+static bool only_one_strand(int64_t fwd, int64_t rev) {
+    return (fwd + rev) > 0 && (fwd == 0 || rev == 0);
+}
+
+static double median(std::vector<int32_t> q) {
+    std::sort(q.begin(), q.end());
+    const size_t n = q.size();
+    return n % 2 ? (double)q[n / 2] : ((double)q[n / 2 - 1] + (double)q[n / 2]) / 2.0;
+}
+
+static bool is_tandem_repeat(const std::string& s, int max_period = 4) {
+    const size_t n = s.size();
+    for (int p = 1; p <= max_period; ++p)
+        if (n >= 2 * (size_t)p && s.compare(p, n - p, s, 0, n - p) == 0) return true;
+    return false;
+}
+
+// one sample's observations of a group
+struct Stats {
+    int64_t depth = 0, fwd_depth = 0, fwd_support = 0, edge_support = 0;
+    std::vector<int32_t> quals;   // sum of alt base qualities, one an observation
+};
+
+static bool is_good_germline(const Var& v, const Stats& st, int copy_number,
+                             bool allow_strand_bias) {
+    const std::vector<int32_t>& quals = st.quals;
+    const int64_t support = (int64_t)quals.size();
+    const int64_t depth = st.depth;
+    int64_t sum_q = 0;
+    for (int32_t q : quals) sum_q += q;
+    if (depth < 4) return support > 1 || sum_q >= 30 || v.alt.size() < v.ref.size();
+    const int64_t rev_support = support - st.fwd_support;
+    const int64_t rev_depth = depth - st.fwd_depth;
+    // the strand-bias test decides only here
+    if (!allow_strand_bias && support > 20 && only_one_strand(st.fwd_support, rev_support)) {
+        const double bias = 1.0 - fisher_two_sided_p(
+            st.fwd_support, std::max<int64_t>(st.fwd_depth - st.fwd_support, 0),
+            rev_support, std::max<int64_t>(rev_depth - rev_support, 0));
+        if (bias > 0.99) return false;
+    }
+    auto count_at_least = [&](int32_t t) {
+        int64_t c = 0;
+        for (int32_t q : quals) c += q >= t;
+        return c;
+    };
+    auto best_at_least = [&](int32_t t) {
+        int32_t best = -1;
+        for (int32_t q : quals) if (q >= t && q > best) best = q;
+        return best;
+    };
+    if (v.ref.size() == 1 && v.alt.size() == 1) {   // snv
+        if (support >= 10 && only_one_strand(st.fwd_support, rev_support) &&
+            median(quals) < 15)
+            return false;   // run-through artifact
+        const int64_t good = count_at_least(20);
+        if (depth <= 10) return good > 1;
+        return good > 2 && (double)good / (double)depth > 1.0 / (5 * copy_number);
+    }
+    if (v.alt.size() > v.ref.size()) {              // insertion
+        const int64_t alt_size = (int64_t)v.alt.size();
+        if (support == 1 && alt_size > 10) return false;
+        if (depth < 10) return support > 1 || (alt_size > 3 && is_tandem_repeat(v.alt));
+        if (depth <= 30) return support > 1;
+        const bool mid = depth <= 60;
+        if (support == 1) return false;
+        if ((double)support / (double)depth > (mid ? 0.3 : 0.35)) return true;
+        const int32_t t = mid ? 25 : 20;
+        const int64_t good = count_at_least(t);
+        if (good <= 1) return false;
+        if (good > (mid ? 2 : 3)) return true;
+        return (double)best_at_least(t) / (double)alt_size > 20;
+    }
+    const int64_t region_size = v.end - v.begin;   // deletion or mnv
+    if (region_size < 10)
+        return support > 1 && (double)support / (double)depth > 1.0 / (10 * copy_number);
+    return (double)support / ((double)depth - std::sqrt((double)depth)) >
+           1.0 / (5 * copy_number);
+}
+
+static bool is_good_pacbio(const Var& v, int64_t depth, int64_t support) {
+    const double vaf = (double)support / (double)std::max<int64_t>(depth, 1);
+    if (v.alt.size() > v.ref.size()) {
+        const size_t alt_size = v.alt.size();
+        if (alt_size > 500) return true;
+        if (alt_size > 200) return vaf > 0.02;
+        if (alt_size > 20) return vaf > 0.05;
+        if (support < 2) return false;
+        if (alt_size <= 2) return vaf > 0.2;
+        if (alt_size < 4) return vaf > 0.1;
+        return vaf > 0.05;
+    }
+    if (v.alt.size() < v.ref.size() || v.end - v.begin > 1) {
+        const int64_t size = v.end - v.begin;
+        if (size > 50) return vaf > 0.1;
+        if (support < 2) return false;
+        if (size <= 2) return vaf > 0.2;
+        if (size < 4) return vaf > 0.1;
+        return vaf > 0.05;
+    }
+    return support > 1 && vaf > 0.1;
+}
+
+// ---- de-Bruijn reassembly ---------------------------------------------------
+
+struct AsmOptions {
+    std::vector<int> kmer_sizes;
+    long long bin_size = 600, bin_overlap = 200;
+    int mask_threshold = 10, min_weight = 1, max_bubbles = 30;
+    double min_score = 2.0;
+    long long max_variant_size = 5000;
+    int max_extension = 700, num_fallbacks = 10, fallback_interval = 10;
+    int assemble_all = 0;
+    long long max_steps = 100000;
+    long long max_size = 5000;    // the generator's size limit on its output
+};
+
+struct Edge {
+    int dst;
+    int weight;
+    bool is_ref;   // edge on the reference path
+    int ref_order; // index on the reference path, -1 otherwise
+    int next;      // the source's next edge in insertion order, -1 last
+};
+
+static inline uint64_t mix64(uint64_t x) {
+    x += 0x9E3779B97F4A7C15ull;
+    x = (x ^ (x >> 30)) * 0xBF58476D1CE4E5B9ull;
+    x = (x ^ (x >> 27)) * 0x94D049BB133111EBull;
+    return x ^ (x >> 31);
+}
+
+// a (k-1)-mer of A, C, G, T packed 2 bits a base into W words
+template <int W>
+struct Key {
+    uint64_t w[W];
+    bool operator==(const Key& o) const {
+        for (int i = 0; i < W; ++i)
+            if (w[i] != o.w[i]) return false;
+        return true;
+    }
+};
+
+template <int W>
+struct KeyHash {
+    size_t operator()(const Key<W>& k) const {
+        uint64_t h = 0;
+        for (int i = 0; i < W; ++i) h = mix64(h ^ k.w[i]);
+        return (size_t)h;
+    }
+};
+
+// (k-1)-mer -> node id, open addressing with linear probes
+template <int W>
+struct KmerTable {
+    std::vector<Key<W>> keys;
+    std::vector<int32_t> ids;   // -1: empty
+    size_t mask = 0, count = 0;
+
+    KmerTable() { reset(1024); }
+
+    void reset(size_t capacity) {
+        keys.assign(capacity, Key<W>{});
+        ids.assign(capacity, -1);
+        mask = capacity - 1;
+        count = 0;
+    }
+
+    // the id of `key`, or -1 after inserting it with `id`
+    int find_or_insert(const Key<W>& key, int32_t id) {
+        for (size_t h = KeyHash<W>()(key) & mask;; h = (h + 1) & mask) {
+            if (ids[h] < 0) {
+                keys[h] = key;
+                ids[h] = id;
+                if (2 * ++count > mask) grow();
+                return -1;
+            }
+            if (keys[h] == key) return ids[h];
+        }
+    }
+
+    void grow() {
+        std::vector<Key<W>> old_keys;
+        std::vector<int32_t> old_ids;
+        old_keys.swap(keys);
+        old_ids.swap(ids);
+        reset(2 * old_ids.size());
+        for (size_t i = 0; i < old_ids.size(); ++i)
+            if (old_ids[i] >= 0) find_or_insert(old_keys[i], old_ids[i]);
+    }
+};
+
+// Nodes are (k-1)-mers, numbered in order of first insertion; edges keep
+// insertion order, so the bubble search visits them as a graph of
+// insertion-ordered dicts does.
+struct Graph {
+    int k, m;                            // m = k - 1
+    std::vector<const uint8_t*> text;    // each node's (k-1)-mer
+    std::vector<Edge> edges;             // every node's out-edges, linked
+    std::vector<int> head, tail;         // a node's first and last edge
+    std::vector<int> ref_path;           // node ids along the reference
+    std::vector<int> ref_index;          // node id -> position on it (-1)
+    bool valid = true;
+
+    explicit Graph(int k_) : k(k_), m(k_ - 1) {}
+
+    int add_node(const uint8_t* s) {
+        text.push_back(s);
+        head.push_back(-1);
+        tail.push_back(-1);
+        return (int)text.size() - 1;
+    }
+
+    Edge* find_edge(int src, int dst) {
+        for (int e = head[src]; e >= 0; e = edges[e].next)
+            if (edges[e].dst == dst) return &edges[e];
+        return nullptr;
+    }
+
+    void add_edge(int src, int dst, int weight, bool is_ref, int ref_order) {
+        const int e = (int)edges.size();
+        edges.push_back(Edge{dst, weight, is_ref, ref_order, -1});
+        if (tail[src] < 0) head[src] = e;
+        else edges[tail[src]].next = e;
+        tail[src] = e;
+    }
+
+    void prune(int min_weight) {
+        // strict threshold: the reference's junction leniency keeps
+        // single-read noise paths alive in this simpler pipeline
+        for (size_t v = 0; v < head.size(); ++v) {
+            int* link = &head[v];
+            for (int e = head[v]; e >= 0; e = edges[e].next)
+                if (edges[e].weight >= min_weight || edges[e].is_ref) {
+                    *link = e;
+                    link = &edges[e].next;
+                }
+            *link = -1;
+        }
+        ref_index.resize(text.size(), -1);
+    }
+};
+
+// Builds a Graph on (k-1)-mers of A, C, G, T packed 2 bits a base into W
+// words; a (k-1)-mer with another base code (N) is keyed by its bytes.
+// `packed` false keys every (k-1)-mer by its bytes (k - 1 beyond 32 W).
+template <int W>
+struct KmerGraph : Graph {
+    bool packed = true;
+    KmerTable<W> ids;
+    std::unordered_map<std::string, int> other;
+    const uint8_t* ref_text = nullptr;
+    std::vector<Key<W>> ref_keys;        // the reference's (k-1)-mers
+    std::vector<char> ref_plain;         // ... where packed
+    uint64_t top;                        // the key's bits in its first word
+
+    KmerGraph(int k_, bool packed_) : Graph(k_), packed(packed_) {
+        const int bits = 2 * m - 64 * (W - 1);
+        top = bits >= 64 ? ~0ull : ((1ull << bits) - 1);
+    }
+
+    int intern(const Key<W>& key, bool plain, const uint8_t* s) {
+        const int id = (int)text.size();
+        if (plain) {
+            const int found = ids.find_or_insert(key, id);
+            if (found >= 0) return found;
+        } else {
+            auto ins = other.try_emplace(std::string((const char*)s, (size_t)m), id);
+            if (!ins.second) return ins.first->second;
+        }
+        return add_node(s);
+    }
+
+    // shifts base s[j] into the key of the window that ends at j;
+    // last_other: the last position of a base other than A, C, G, T
+    void roll(Key<W>& key, int64_t& last_other, const uint8_t* s, int64_t j) const {
+        uint64_t c = s[j];
+        if (c > 3) { last_other = j; c = 0; }
+        if (!packed) return;
+        for (int i = 0; i + 1 < W; ++i)
+            key.w[i] = (key.w[i] << 2) | (key.w[i + 1] >> 62);
+        key.w[W - 1] = (key.w[W - 1] << 2) | c;
+        key.w[0] &= top;
+    }
+
+    void insert_reference(const uint8_t* seq, int64_t n) {
+        if (n < k) { valid = false; return; }
+        size_t capacity = 1024;
+        while (capacity < 4 * (size_t)n) capacity *= 2;
+        ids.reset(capacity);
+        ref_text = seq;
+        Key<W> key{};
+        int64_t last_other = -1;
+        for (int64_t j = 0; j < n; ++j) {
+            roll(key, last_other, seq, j);
+            const int64_t i = j - m + 1;
+            if (i < 0) continue;
+            const bool plain = packed && last_other < i;
+            ref_path.push_back(intern(key, plain, seq + i));
+            ref_keys.push_back(key);
+            ref_plain.push_back(plain);
+        }
+        {   // reference (k-1)-mers must be unique at this k
+            std::vector<char> seen(text.size(), 0);
+            for (int id : ref_path) {
+                if (seen[id]) { valid = false; return; }
+                seen[id] = 1;
+            }
+        }
+        for (size_t i = 0; i + 1 < ref_path.size(); ++i) {
+            const int src = ref_path[i], dst = ref_path[i + 1];
+            Edge* e = find_edge(src, dst);
+            if (!e) add_edge(src, dst, 0, true, (int)i);
+            else { e->is_ref = true; e->ref_order = (int)i; }
+        }
+        ref_index.assign(text.size(), -1);
+        for (size_t i = 0; i < ref_path.size(); ++i) ref_index[ref_path[i]] = (int)i;
+    }
+
+    // a read's k-mers, split at masked bases (code 4)
+    void insert_read(const uint8_t* seq, int64_t n) {
+        int64_t start = 0;
+        for (int64_t i = 0; i <= n; ++i) {
+            if (i == n || seq[i] == 4) {
+                if (i - start >= k) insert_segment(seq + start, i - start);
+                start = i + 1;
+            }
+        }
+    }
+
+    // Consecutive (k-1)-mers make an edge, or add one to its weight. Where
+    // the read follows the reference path, the steps are reference edges,
+    // whose weights the bubble search never reads: those steps are skipped,
+    // up to the last reference node the read reaches.
+    void insert_segment(const uint8_t* s, int64_t n) {
+        const int64_t n_ref = (int64_t)ref_path.size();
+        Key<W> key{};
+        int64_t last_other = -1;
+        for (int64_t j = 0; j < m - 1; ++j) roll(key, last_other, s, j);
+        int prev = -1;
+        for (int64_t j = m - 1; j < n; ++j) {
+            roll(key, last_other, s, j);
+            const int64_t i = j - m + 1;             // this window's start
+            const bool plain = packed && last_other < i;
+            const int at = prev >= 0 && prev < (int)ref_index.size() ? ref_index[prev] : -1;
+            int node;
+            if (plain && at >= 0 && at + 1 < n_ref && ref_plain[at + 1] &&
+                ref_keys[at + 1] == key)
+                node = ref_path[at + 1];
+            else
+                node = intern(key, plain, s + i);
+            if (prev >= 0) {
+                Edge* e = find_edge(prev, node);
+                if (e) e->weight += 1;
+                else add_edge(prev, node, 1, false, -1);
+            }
+            prev = node;
+            const int here = node < (int)ref_index.size() ? ref_index[node] : -1;
+            if (here < 0) continue;
+            // the windows that go on along the reference path
+            int64_t t = 0;
+            while (j + 1 + t < n && here + 1 + t < n_ref &&
+                   s[j + 1 + t] == ref_text[here + m + t])
+                ++t;
+            if (!t) continue;
+            j += t;
+            prev = ref_path[here + t];
+            if (ref_plain[here + t]) {
+                key = ref_keys[here + t];
+            } else {
+                for (int64_t u = j - m + 1; u <= j; ++u) roll(key, last_other, s, u);
+            }
+        }
+    }
+};
+
+struct PathEntry {
+    int node;
+    int parent;  // index into arena, -1 for root
+    int start_i; // seed position on the reference path
+    int min_w;
+    int depth;   // number of nodes on the alt path
+};
+
+struct HeapItem {
+    int score;       // min edge support along the path
+    long counter;    // global push order (FIFO tie-break)
+    int entry;       // arena index
+    bool operator<(const HeapItem& o) const {
+        // max-heap on score, then min on counter
+        if (score != o.score) return score < o.score;
+        return counter > o.counter;
+    }
+};
+
+struct Bubble {
+    int start_i, end_i;
+    std::string alt;
+};
+
+static bool path_contains(const std::vector<PathEntry>& arena, int entry, int node) {
+    for (int e = entry; e >= 0; e = arena[e].parent)
+        if (arena[e].node == node) return true;
+    return false;
+}
+
+// Alt paths that leave the reference path and rejoin it downstream, best
+// first by their weakest edge, ties in push order; at most max_steps pushes
+static std::vector<Bubble> extract(const Graph& g, int max_bubbles, double min_score,
+                                   int max_extension, long max_steps) {
+    std::vector<Bubble> out;
+    std::vector<PathEntry> arena;
+    std::priority_queue<HeapItem> heap;
+    long counter = 0;
+    for (size_t i = 0; i + 1 < g.ref_path.size(); ++i) {
+        const int src = g.ref_path[i];
+        for (int x = g.head[src]; x >= 0; x = g.edges[x].next) {
+            const Edge& e = g.edges[x];
+            if (e.is_ref && e.ref_order == (int)i) continue;
+            if (e.weight <= 0) continue;
+            if (counter >= max_steps) break;
+            arena.push_back(PathEntry{e.dst, -1, (int)i, e.weight, 1});
+            heap.push(HeapItem{e.weight, counter++, (int)arena.size() - 1});
+        }
+    }
+    std::set<std::tuple<int, int, std::string>> seen;
+    while (!heap.empty() && (int)out.size() < max_bubbles) {
+        const HeapItem item = heap.top();
+        heap.pop();
+        const PathEntry ent = arena[item.entry];
+        const int node = ent.node;
+        const int ridx = g.ref_index[node];
+        if (ridx >= 0 && ridx > ent.start_i) {
+            // rejoined the reference: alt = first ref node + last base of
+            // each path node in root->leaf order
+            std::string alt((const char*)g.text[g.ref_path[ent.start_i]], (size_t)g.m);
+            alt.resize((size_t)(g.m + ent.depth));
+            int e = item.entry;
+            for (int d = ent.depth - 1; d >= 0; --d, e = arena[e].parent)
+                alt[g.m + d] = (char)g.text[arena[e].node][g.m - 1];
+            auto key = std::make_tuple(ent.start_i, ridx, alt);
+            if (!seen.count(key) && ent.min_w >= min_score) {
+                seen.insert(key);
+                out.push_back(Bubble{ent.start_i, ridx, std::move(alt)});
+            }
+            continue;
+        }
+        if (ent.depth > max_extension) continue;
+        for (int x = g.head[node]; x >= 0; x = g.edges[x].next) {
+            const Edge& e = g.edges[x];
+            if (e.weight <= 0 && !e.is_ref) continue;
+            if (e.dst == g.ref_path[ent.start_i] ||
+                path_contains(arena, item.entry, e.dst))
+                continue;
+            if (counter >= max_steps) break;
+            const int eff = e.is_ref ? ent.min_w : std::min(ent.min_w, e.weight);
+            arena.push_back(PathEntry{e.dst, item.entry, ent.start_i, eff,
+                                      ent.depth + 1});
+            heap.push(HeapItem{eff, counter++, (int)arena.size() - 1});
+        }
+    }
+    return out;
+}
+
+// the bubbles of one bin at one k; false where a (k-1)-mer repeats on the
+// reference (the reference's assembler rejects such a k)
+template <int W>
+static bool bubbles_at(const uint8_t* ref, int64_t n, const std::vector<uint8_t>& reads,
+                       const std::vector<int64_t>& offsets, int k, bool packed,
+                       const AsmOptions& o, std::vector<Bubble>& out) {
+    KmerGraph<W> g(k, packed);
+    g.insert_reference(ref, n);
+    if (!g.valid) return false;
+    for (size_t r = 0; r + 1 < offsets.size(); ++r)
+        g.insert_read(reads.data() + offsets[r], offsets[r + 1] - offsets[r]);
+    g.prune(o.min_weight);
+    out = extract(g, o.max_bubbles, o.min_score, o.max_extension, (long)o.max_steps);
+    return true;
+}
+
+static bool bubbles_for(const uint8_t* ref, int64_t n, const std::vector<uint8_t>& reads,
+                        const std::vector<int64_t>& offsets, int k,
+                        const AsmOptions& o, std::vector<Bubble>& out) {
+    const int words = (2 * (k - 1) + 63) / 64;
+    switch (words) {
+    case 1: return bubbles_at<1>(ref, n, reads, offsets, k, true, o, out);
+    case 2: return bubbles_at<2>(ref, n, reads, offsets, k, true, o, out);
+    case 3: return bubbles_at<3>(ref, n, reads, offsets, k, true, o, out);
+    case 4: return bubbles_at<4>(ref, n, reads, offsets, k, true, o, out);
+    default: return bubbles_at<1>(ref, n, reads, offsets, k, false, o, out);
+    }
+}
+
+// mismatches of each aligned column, and each gap up to max_size
+static void variants_from_alignment(int64_t ref_begin, const uint8_t* ref,
+                                    const std::string& alt,
+                                    const std::vector<std::pair<int32_t, int32_t>>& ops,
+                                    long long max_size, std::vector<Var>& out) {
+    int64_t ri = 0, bi = 0;
+    for (const auto& op : ops) {
+        const int64_t length = op.first;
+        if (op.second == 0) {
+            for (int64_t k = 0; k < length; ++k)
+                if (ref[ri + k] != (uint8_t)alt[bi + k])
+                    out.push_back(Var{ref_begin + ri + k, ref_begin + ri + k + 1,
+                                      std::string(1, (char)ref[ri + k]),
+                                      std::string(1, alt[bi + k])});
+            ri += length;
+            bi += length;
+        } else if (op.second == 2) {
+            if (length <= max_size)
+                out.push_back(Var{ref_begin + ri, ref_begin + ri + length,
+                                  std::string((const char*)ref + ri, (size_t)length),
+                                  std::string()});
+            ri += length;
+        } else {
+            if (length <= max_size)
+                out.push_back(Var{ref_begin + ri, ref_begin + ri, std::string(),
+                                  alt.substr((size_t)bi, (size_t)length)});
+            bi += length;
+        }
+    }
+}
+
+// one bin: the default k-mer sizes, then the fallback ladder until one k is
+// unambiguous; the largest k's variants and those two sizes confirm
+static void assemble_bin(const Batch& B, const std::vector<Py_ssize_t>& reads,
+                         int64_t begin, int64_t end, const Ref& R,
+                         const AsmOptions& o, std::vector<Var>& out) {
+    const int pad = *std::max_element(o.kmer_sizes.begin(), o.kmer_sizes.end());
+    const int64_t ref_begin = std::max<int64_t>(begin - pad, 0);
+    const int64_t ref_end = std::min<int64_t>(end + pad, R.contig_size);
+    const uint8_t* ref = R.base + (ref_begin - R.lo);
+    const int64_t n = std::max<int64_t>(ref_end - ref_begin, 0);
+    std::vector<uint8_t> masked;
+    std::vector<int64_t> offsets{0};
+    for (Py_ssize_t r : reads) {
+        for (int64_t i = B.soff[r]; i < B.soff[r + 1]; ++i)
+            masked.push_back(B.quals[i] < o.mask_threshold ? 4 : B.seq[i]);
+        offsets.push_back((int64_t)masked.size());
+    }
+    std::vector<int> ks(o.kmer_sizes);
+    for (int i = 0; i < o.num_fallbacks; ++i)
+        ks.push_back(pad + (i + 1) * o.fallback_interval);
+    std::vector<std::pair<int, std::vector<Var>>> per_k;
+    std::vector<Bubble> bubbles;
+    for (size_t tier = 0; tier < ks.size(); ++tier) {
+        const int k = ks[tier];
+        if (tier >= o.kmer_sizes.size() && !per_k.empty()) break;
+        if (n < k + 1) continue;
+        if (!bubbles_for(ref, n, masked, offsets, k, o, bubbles)) continue;
+        std::vector<Var> got;
+        for (const Bubble& b : bubbles) {
+            // the bubble spans reference [start_i, end_i + k - 1)
+            const uint8_t* seg = ref + b.start_i;
+            const int64_t seg_n = b.end_i + k - 1 - b.start_i;
+            if ((int64_t)b.alt.size() == seg_n &&
+                std::memcmp(seg, b.alt.data(), (size_t)seg_n) == 0)
+                continue;
+            const size_t first = got.size();
+            variants_from_alignment(
+                ref_begin + b.start_i, seg, b.alt,
+                global_align(seg, seg_n, (const uint8_t*)b.alt.data(),
+                             (int64_t)b.alt.size(), 2, -3, -8, -1),
+                o.max_variant_size, got);
+            for (size_t i = first; i < got.size(); ++i)
+                if (got[i].is_indel()) left_align(got[i], R);
+        }
+        auto it = std::find_if(per_k.begin(), per_k.end(),
+                               [k](const auto& kv) { return kv.first == k; });
+        if (it == per_k.end()) per_k.emplace_back(k, std::move(got));
+        else it->second = std::move(got);
+    }
+    if (per_k.empty()) return;
+    if (per_k.size() == 1) {
+        out.insert(out.end(), per_k[0].second.begin(), per_k[0].second.end());
+        return;
+    }
+    // cross-k confirmation: at small k, (k-1)-mers shared between distant
+    // loci can glue phantom bubbles out of real reads' paths; a real event
+    // survives at every k that holds its junction context
+    std::map<Var, int> counts;
+    for (auto& kv : per_k) {
+        std::vector<Var> distinct(kv.second);
+        std::sort(distinct.begin(), distinct.end());
+        distinct.erase(std::unique(distinct.begin(), distinct.end()), distinct.end());
+        for (const Var& v : distinct) ++counts[v];
+    }
+    const auto largest = std::max_element(
+        per_k.begin(), per_k.end(),
+        [](const auto& a, const auto& b) { return a.first < b.first; });
+    out.insert(out.end(), largest->second.begin(), largest->second.end());
+    for (const auto& kv : counts)
+        if (kv.second >= 2) out.push_back(kv.first);
+}
+
+// the reassembler over one batch: bins of signal-bearing reads. Returns
+// the number of mismatch-dense reads where they were too many to trigger
+// assembly, else 0.
+static int64_t reassemble(const Batch& B, const Ref& R, int64_t region_begin,
+                          int64_t region_end, const AsmOptions& o, std::vector<Var>& out) {
+    // reads with indels or soft clips of >= 2 bases (TriggerType::indel)
+    std::vector<char> interesting((size_t)B.n, 0);
+    for (Py_ssize_t r = 0; r < B.n; ++r)
+        for (int64_t c = B.coff[r]; c < B.coff[r + 1]; ++c) {
+            const int32_t len = B.cig[2 * c], op = B.cig[2 * c + 1];
+            if (op == 1 || op == 2 || (op == 4 && len >= 2)) interesting[r] = 1;
+        }
+    // reads of one M operation with >= 2 mismatches (TriggerType::clustered)
+    std::vector<char> dense((size_t)B.n, 0);
+    int64_t n_dense = 0;
+    if (B.n) {
+        int64_t lo = B.begins[0], hi = B.ends[0];
+        for (Py_ssize_t r = 0; r < B.n; ++r) {
+            lo = std::min(lo, B.begins[r]);
+            hi = std::max(hi, B.ends[r]);
+        }
+        lo = std::max<int64_t>(lo, 0);
+        hi = std::min(hi, R.contig_size);
+        for (Py_ssize_t r = 0; hi > lo && r < B.n; ++r) {
+            if (B.coff[r + 1] - B.coff[r] != 1 || B.cig[2 * B.coff[r] + 1] != 0) continue;
+            int mism = 0;
+            for (int64_t i = 0; i < B.soff[r + 1] - B.soff[r]; ++i) {
+                const int64_t p = B.begins[r] + i;
+                if (p >= lo && p < hi && B.seq[B.soff[r] + i] != R.at(p)) ++mism;
+            }
+            if (mism >= 2) { dense[r] = 1; ++n_dense; }
+        }
+    }
+    // a majority of dense reads over many reads is a wrong reference or an
+    // unalignable region, not a local event: the clustered trigger stays off
+    const bool suppress = B.n && (double)n_dense / (double)B.n > 0.5 && n_dense >= 256;
+    if (!suppress)
+        for (Py_ssize_t r = 0; r < B.n; ++r) interesting[r] |= dense[r];
+    const int64_t step = o.bin_size - o.bin_overlap;
+    std::vector<Py_ssize_t> over;
+    for (int64_t pos = region_begin; pos < region_end; pos += step) {
+        const int64_t bin_end = std::min(pos + (int64_t)o.bin_size, region_end);
+        over.clear();
+        int64_t n_int = 0;
+        for (Py_ssize_t r = 0; r < B.n; ++r)
+            if (B.begins[r] < bin_end && B.ends[r] > pos) {
+                over.push_back(r);
+                n_int += interesting[r];
+            }
+        const int64_t n_over = (int64_t)over.size();
+        if (n_over >= 2 &&
+            (o.assemble_all || (double)n_int >= std::max(2.0, 0.05 * (double)n_over)))
+            assemble_bin(B, over, pos, bin_end, R, o, out);
+    }
+    return suppress ? n_dense : 0;
+}
+
+// ---- the window ---------------------------------------------------------------
+
+struct Group {
+    int64_t begin, end;
+    std::string alt;
+};
+
+struct GroupKeyHash {
+    size_t operator()(const std::tuple<int64_t, int64_t, std::string>& k) const {
+        return (size_t)mix64((uint64_t)std::get<0>(k) * 31 + (uint64_t)std::get<1>(k)) ^
+               std::hash<std::string>()(std::get<2>(k));
+    }
+};
+
+struct Obs {
+    int32_t group, sample, sum_q;
+    uint8_t forward, at_edge;
+};
+
+struct Out {
+    std::vector<Var> found;          // included, all sources
+    // groups for the caller's inclusion predicate
+    std::vector<int64_t> groups;     // (begin, end, ref_len, alt_len, row0, row1)
+    std::string group_seqs;
+    std::vector<int64_t> rows;       // (sample, depth, fwd_depth, fwd_support,
+                                     //  edge_support, q0, q1)
+    std::vector<int32_t> quals;
+    std::vector<int64_t> suppressed; // (batch, dense reads, reads)
+};
+
+static void scan_window(const std::vector<Batch>& batches, const Ref& R,
+                        int64_t region_begin, int64_t region_end,
+                        const ScanOptions& o, Out& out) {
+    std::unordered_map<std::tuple<int64_t, int64_t, std::string>, int32_t, GroupKeyHash> ids;
+    std::vector<Group> groups;
+    std::vector<Obs> obs;
+    std::vector<ScanCand> cands;
+    int n_samples = 0;
+    int64_t lo = std::numeric_limits<int64_t>::max(), hi = std::numeric_limits<int64_t>::min();
+    for (const Batch& B : batches) {
+        n_samples = std::max(n_samples, B.sample + 1);
+        for (Py_ssize_t r = 0; r < B.n; ++r) {
+            lo = std::min(lo, B.begins[r]);
+            hi = std::max(hi, B.ends[r]);
+        }
+        cands.clear();
+        scan_batch(B, R, o, cands);
+        for (const ScanCand& c : cands) {
+            if (c.misaligned) continue;
+            if ((c.begin >= region_end || c.end <= region_begin) &&
+                !(c.begin == c.end && c.begin == region_begin))
+                continue;
+            std::tuple<int64_t, int64_t, std::string> key(
+                c.begin, c.end,
+                std::string((const char*)B.seq + B.soff[c.read] + c.offset, (size_t)c.alt_len));
+            auto ins = ids.try_emplace(std::move(key), (int32_t)groups.size());
+            if (ins.second)
+                groups.push_back(Group{c.begin, c.end, std::get<2>(ins.first->first)});
+            obs.push_back(Obs{ins.first->second, B.sample, c.sum_q,
+                              (uint8_t)!(B.flags[c.read] & 16), c.at_edge});
+        }
+    }
+    if (obs.empty()) return;
+    // coverage over the reads' span, each sample, forward strand and all
+    const int64_t n = hi - lo + 1;
+    std::vector<int32_t> cov((size_t)(n_samples * n), 0), fwd((size_t)(n_samples * n), 0),
+        total((size_t)n, 0);
+    for (const Batch& B : batches)
+        for (Py_ssize_t r = 0; r < B.n; ++r) {
+            const int64_t b = B.begins[r] - lo, e = B.ends[r] - lo;
+            int32_t* cs = cov.data() + B.sample * n;
+            ++cs[b]; --cs[e];
+            ++total[b]; --total[e];
+            if (!(B.flags[r] & 16)) {
+                int32_t* fs = fwd.data() + B.sample * n;
+                ++fs[b]; --fs[e];
+            }
+        }
+    for (int s = 0; s < n_samples; ++s)
+        for (int64_t i = 1; i < n; ++i) {
+            cov[s * n + i] += cov[s * n + i - 1];
+            fwd[s * n + i] += fwd[s * n + i - 1];
+        }
+    for (int64_t i = 1; i < n; ++i) total[i] += total[i - 1];
+    auto min_depth = [&](const int32_t* arr, int64_t b, int64_t e) -> int64_t {
+        b = std::min(std::max<int64_t>(b - lo, 0), n - 1);
+        e = std::min(std::max(e - lo, b + 1), n);
+        int32_t m = arr[b];
+        for (int64_t i = b + 1; i < e; ++i) m = std::min(m, arr[i]);
+        return m;
+    };
+    // observations by group, then sample
+    std::vector<int32_t> order(obs.size());
+    for (size_t i = 0; i < obs.size(); ++i) order[i] = (int32_t)i;
+    std::stable_sort(order.begin(), order.end(), [&](int32_t a, int32_t b) {
+        return std::tie(obs[a].group, obs[a].sample) < std::tie(obs[b].group, obs[b].sample);
+    });
+    std::vector<std::pair<int, Stats>> stats;
+    size_t i = 0;
+    while (i < order.size()) {
+        const int32_t gi = obs[order[i]].group;
+        size_t j = i;
+        while (j < order.size() && obs[order[j]].group == gi) ++j;
+        const Group& gr = groups[gi];
+        Var v{gr.begin, gr.end, R.slice(gr.begin, gr.end), gr.alt};
+        bool include = false;
+        if (o.inclusion == THRESHOLD) {
+            include = (int64_t)(j - i) >= o.min_observations;
+        } else {
+            stats.clear();
+            for (size_t a = i; a < j;) {
+                const int s = obs[order[a]].sample;
+                Stats st;
+                for (; a < j && obs[order[a]].sample == s; ++a) {
+                    const Obs& ob = obs[order[a]];
+                    st.quals.push_back(ob.sum_q);
+                    st.fwd_support += ob.forward;
+                    st.edge_support += ob.at_edge;
+                }
+                st.depth = std::max(min_depth(cov.data() + s * n, v.begin, v.end),
+                                    (int64_t)st.quals.size());
+                st.fwd_depth = min_depth(fwd.data() + s * n, v.begin, v.end);
+                stats.emplace_back(s, std::move(st));
+            }
+            if (o.inclusion == BY_CALLER) {
+                const int64_t row0 = (int64_t)out.rows.size() / 7;
+                for (const auto& sst : stats) {
+                    const Stats& st = sst.second;
+                    const int64_t q0 = (int64_t)out.quals.size();
+                    out.quals.insert(out.quals.end(), st.quals.begin(), st.quals.end());
+                    out.rows.insert(out.rows.end(),
+                                    {(int64_t)sst.first, st.depth, st.fwd_depth,
+                                     st.fwd_support, st.edge_support, q0,
+                                     (int64_t)out.quals.size()});
+                }
+                out.groups.insert(out.groups.end(),
+                                  {v.begin, v.end, (int64_t)v.ref.size(),
+                                   (int64_t)v.alt.size(), row0,
+                                   (int64_t)out.rows.size() / 7});
+                out.group_seqs += v.ref;
+                out.group_seqs += v.alt;
+                i = j;
+                continue;
+            }
+            for (const auto& sst : stats) {
+                const Stats& st = sst.second;
+                include = o.inclusion == GERMLINE
+                    ? is_good_germline(v, st, o.copy_number, o.allow_strand_bias)
+                    : is_good_pacbio(v, st.depth, (int64_t)st.quals.size());
+                if (include) break;
+            }
+            if (!include && stats.size() > 1) {   // the samples pooled
+                Stats pooled;
+                pooled.depth = min_depth(total.data(), v.begin, v.end);
+                for (const auto& sst : stats) {
+                    pooled.fwd_depth += sst.second.fwd_depth;
+                    pooled.fwd_support += sst.second.fwd_support;
+                    pooled.quals.insert(pooled.quals.end(), sst.second.quals.begin(),
+                                        sst.second.quals.end());
+                }
+                include = o.inclusion == GERMLINE
+                    ? is_good_germline(v, pooled, o.copy_number, o.allow_strand_bias)
+                    : is_good_pacbio(v, pooled.depth, (int64_t)pooled.quals.size());
+            }
+        }
+        if (include) {
+            if (v.is_indel()) left_align(v, R);
+            out.found.push_back(std::move(v));
+        }
+        i = j;
+    }
+}
+
+}  // namespace vargen
+
+// Buffers of the arguments, released on return
+struct Views {
+    std::vector<Py_buffer> held;
+    ~Views() { for (auto& b : held) PyBuffer_Release(&b); }
+    // the buffer of obj as n_items of `item` bytes (n_items < 0: any count)
+    const void* get(PyObject* obj, Py_ssize_t item, Py_ssize_t& n_items) {
+        Py_buffer b;
+        if (PyObject_GetBuffer(obj, &b, PyBUF_C_CONTIGUOUS) < 0) return nullptr;
+        held.push_back(b);
+        if (b.len % item || (n_items >= 0 && b.len / item != n_items)) {
+            PyErr_SetString(PyExc_ValueError, "generate_candidates: buffer of the wrong size");
+            return nullptr;
+        }
+        n_items = b.len / item;
+        return b.buf;
+    }
+};
+
+static PyObject* bytes_of(const void* p, size_t n) {
+    return PyBytes_FromStringAndSize(n ? (const char*)p : "", (Py_ssize_t)n);
+}
+
+static PyObject* pack_vars(const std::vector<vargen::Var>& vs) {
+    std::vector<int64_t> rec;
+    std::string seqs;
+    for (const auto& v : vs) {
+        rec.insert(rec.end(), {v.begin, v.end, (int64_t)v.ref.size(),
+                               (int64_t)v.alt.size(), (int64_t)v.edge});
+        seqs += v.ref;
+        seqs += v.alt;
+    }
+    return Py_BuildValue("(NN)", bytes_of(rec.data(), rec.size() * sizeof(int64_t)),
+                         bytes_of(seqs.data(), seqs.size()));
+}
+
+// generate_candidates(ref: u8 contig[lo, hi), lo, contig_size,
+//     batches: [(sample, begins i64, ends i64, mapq u8, flags u16, seq u8,
+//                quals u8, seq_offsets i64, cigar_ops i32 (n, 2),
+//                cigar_offsets i64)],
+//     region_begin, region_end,
+//     scanner: (use, snv_threshold, snv_penalty, indel_penalty, clip_penalty,
+//               max_clip, max_variant_size, use_filter, mutation_rate,
+//               min_ln_prob, inclusion, copy_number, allow_strand_bias,
+//               min_observations),
+//     assembler: None | (kmer_sizes i32, bin_size, bin_overlap,
+//               mask_threshold, min_weight, max_bubbles, min_score,
+//               max_variant_size, max_extension, num_fallbacks,
+//               fallback_interval, assemble_all, max_steps, max_size))
+//   -> ((records i64 (begin, end, ref_len, alt_len, edge), seqs),
+//       groups i64 (begin, end, ref_len, alt_len, row0, row1), group_seqs,
+//       rows i64 (sample, depth, fwd_depth, fwd_support, edge_support, q0, q1),
+//       quals i32, suppressed i64 (batch, dense reads, reads))
+// The records are the window's candidates from both generators, distinct,
+// sorted by (begin, end, alt); an edge record's left alignment stopped at
+// lo. The groups are the scanner's for the caller's predicate (inclusion 3).
+static PyObject* generate_candidates(PyObject*, PyObject* args) {
+    using namespace vargen;
+    PyObject *ref_obj, *batch_list, *scan_t, *asm_t;
+    long long ref_lo, contig_size, region_begin, region_end;
+    if (!PyArg_ParseTuple(args, "OLLO!LLO!O", &ref_obj, &ref_lo, &contig_size,
+                          &PyList_Type, &batch_list, &region_begin, &region_end,
+                          &PyTuple_Type, &scan_t, &asm_t))
+        return nullptr;
+    Views views;
+    Py_ssize_t ref_n = -1;
+    const void* ref_p = views.get(ref_obj, 1, ref_n);
+    if (!ref_p) return nullptr;
+    const Ref R{(const uint8_t*)ref_p, ref_lo, ref_lo + ref_n, contig_size};
+    ScanOptions so;
+    if (!PyArg_ParseTuple(scan_t, "iidddiLiddiiii", &so.use, &so.snv_threshold,
+                          &so.snv_penalty, &so.indel_penalty, &so.clip_penalty,
+                          &so.max_clip, &so.max_variant_size, &so.use_filter,
+                          &so.mutation_rate, &so.min_ln_prob, &so.inclusion,
+                          &so.copy_number, &so.allow_strand_bias, &so.min_observations))
+        return nullptr;
+    AsmOptions ao;
+    const bool assemble = asm_t != Py_None;
+    if (assemble) {
+        PyObject* ks;
+        if (!PyArg_ParseTuple(asm_t, "OLLiiidLiiiiLL", &ks, &ao.bin_size, &ao.bin_overlap,
+                              &ao.mask_threshold, &ao.min_weight, &ao.max_bubbles,
+                              &ao.min_score, &ao.max_variant_size, &ao.max_extension,
+                              &ao.num_fallbacks, &ao.fallback_interval, &ao.assemble_all,
+                              &ao.max_steps, &ao.max_size))
+            return nullptr;
+        Py_ssize_t nk = -1;
+        const int32_t* kp = (const int32_t*)views.get(ks, 4, nk);
+        if (!kp) return nullptr;
+        ao.kmer_sizes.assign(kp, kp + nk);
+        if (ao.kmer_sizes.empty() || ao.bin_size <= ao.bin_overlap ||
+            *std::min_element(ao.kmer_sizes.begin(), ao.kmer_sizes.end()) < 2) {
+            PyErr_SetString(PyExc_ValueError,
+                            "assembler: k-mer sizes >= 2 and a bin longer than its overlap");
+            return nullptr;
+        }
+    }
+    std::vector<Batch> batches;
+    for (Py_ssize_t i = 0; i < PyList_GET_SIZE(batch_list); ++i) {
+        PyObject* t = PyList_GET_ITEM(batch_list, i);
+        Batch B;
+        PyObject *o_beg, *o_end, *o_mq, *o_fl, *o_seq, *o_q, *o_so, *o_cig, *o_co;
+        if (!PyArg_ParseTuple(t, "iOOOOOOOOO", &B.sample, &o_beg, &o_end, &o_mq, &o_fl,
+                              &o_seq, &o_q, &o_so, &o_cig, &o_co))
+            return nullptr;
+        Py_ssize_t n = -1, n1, n_seq = -1, n_ops = -1, n_q;
+        if (!(B.begins = (const int64_t*)views.get(o_beg, 8, n))) return nullptr;
+        n1 = n + 1;
+        if (!(B.ends = (const int64_t*)views.get(o_end, 8, n)) ||
+            !(B.mapq = (const uint8_t*)views.get(o_mq, 1, n)) ||
+            !(B.flags = (const uint16_t*)views.get(o_fl, 2, n)) ||
+            !(B.seq = (const uint8_t*)views.get(o_seq, 1, n_seq)) ||
+            !(B.quals = (const uint8_t*)views.get(o_q, 1, n_q = n_seq)) ||
+            !(B.soff = (const int64_t*)views.get(o_so, 8, n1)) ||
+            !(B.cig = (const int32_t*)views.get(o_cig, 8, n_ops)) ||
+            !(B.coff = (const int64_t*)views.get(o_co, 8, n1 = n + 1)))
+            return nullptr;
+        bool ok = B.sample >= 0 && B.soff[0] >= 0 && B.coff[0] >= 0 &&
+                  B.soff[n] <= n_seq && B.coff[n] <= n_ops;
+        for (Py_ssize_t r = 0; ok && r < n; ++r)
+            ok = B.soff[r] <= B.soff[r + 1] && B.coff[r] <= B.coff[r + 1] &&
+                 B.begins[r] >= R.lo && B.begins[r] <= B.ends[r] &&
+                 (B.ends[r] <= R.hi || R.hi == R.contig_size);
+        if (!ok) {
+            PyErr_SetString(PyExc_ValueError,
+                            "generate_candidates: reads outside the reference held, "
+                            "or offsets out of order");
+            return nullptr;
+        }
+        B.n = n;
+        batches.push_back(B);
+    }
+    if (assemble && region_begin < region_end) {
+        const int pad = *std::max_element(ao.kmer_sizes.begin(), ao.kmer_sizes.end());
+        if (std::max<int64_t>(region_begin - pad, 0) < R.lo ||
+            std::min<int64_t>(region_end + pad, R.contig_size) > R.hi) {
+            PyErr_SetString(PyExc_ValueError,
+                            "generate_candidates: bins outside the reference held");
+            return nullptr;
+        }
+    }
+    Out out;
+    std::string error;
+    Py_BEGIN_ALLOW_THREADS
+    try {
+        if (so.use) scan_window(batches, R, region_begin, region_end, so, out);
+        if (assemble)
+            for (size_t b = 0; b < batches.size(); ++b) {
+                std::vector<Var> got;
+                const int64_t n_dense =
+                    reassemble(batches[b], R, region_begin, region_end, ao, got);
+                if (n_dense)
+                    out.suppressed.insert(out.suppressed.end(),
+                                          {(int64_t)b, n_dense, (int64_t)batches[b].n});
+                for (Var& v : got)
+                    if (v.end - v.begin <= ao.max_size) {
+                        if (v.is_indel()) left_align(v, R);
+                        out.found.push_back(std::move(v));
+                    }
+            }
+        std::sort(out.found.begin(), out.found.end());
+        out.found.erase(std::unique(out.found.begin(), out.found.end()), out.found.end());
+    } catch (const std::exception& e) {
+        error = e.what();
+    }
+    Py_END_ALLOW_THREADS
+    if (!error.empty()) {
+        PyErr_SetString(PyExc_RuntimeError, error.c_str());
+        return nullptr;
+    }
+    return Py_BuildValue(
+        "(NNNNNN)", pack_vars(out.found), bytes_of(out.groups.data(), out.groups.size() * 8),
+        bytes_of(out.group_seqs.data(), out.group_seqs.size()),
+        bytes_of(out.rows.data(), out.rows.size() * 8),
+        bytes_of(out.quals.data(), out.quals.size() * 4),
+        bytes_of(out.suppressed.data(), out.suppressed.size() * 8));
 }
 
 // banded_traceback(cm: int32 (R, W), gap_open: int32 (W), gap_extend:
@@ -2449,16 +3299,14 @@ static PyMethodDef methods[] = {
      "Banded Viterbi with traceback -> (score, first_pos, ops bytes)."},
     {"global_align", global_align_native, METH_VARARGS,
      "Affine-gap global alignment -> int32-le (length, op) pairs."},
-    {"scan_cigar_reads", scan_cigar_reads, METH_VARARGS,
-     "CIGAR candidate scan over a ReadBatch -> packed ScanCand records."},
+    {"generate_candidates", generate_candidates, METH_VARARGS,
+     "A window's candidate variants, CIGAR scan and reassembly -> packed records."},
     {"tandem_repeats", tandem_repeats, METH_VARARGS,
      "Maximal exact tandem repeats -> int32-le (pos, length, period) triples."},
     {"snv_priors", snv_priors, METH_VARARGS,
      "Repeat-context SNV penalty caps -> (fwd, rev) int16-le bytes."},
     {"indel_penalties", indel_penalties, METH_VARARGS,
      "Repeat-context indel gap penalties -> (open, extend) int16-le bytes."},
-    {"extract_bubbles", extract_bubbles, METH_VARARGS,
-     "De-Bruijn bubble extraction -> [(ref_start_i, ref_end_i, alt, score)] or None."},
     {"inflate_bgzf", inflate_bgzf, METH_VARARGS,
      "Inflate concatenated BGZF blocks -> (data, block_coffsets_u64, block_uoffsets_u64)."},
     {"scan_bam_records", scan_bam_records, METH_VARARGS,

@@ -15,6 +15,13 @@ seed too). `seconds` is a cap: no shard starts once it has passed (the
 last one started runs to its end), and the result line and the window's
 log say whether the pass completed (`pass_complete`), so that a rate over
 a cut pass shows as one.
+
+The check (`check.py`) runs once the window has closed, over samples of
+bounded size, and the window's log gives its seconds from the window's
+close to the verdict, less the profiler's stop in a traced run
+(`check_s`). A traffic may carry `rehearsal` (`contig_kb`, `shard_kb`):
+the size the tests rehearse its cells at on the CPU (`rehearsal_size`); a
+run takes no notice of it.
 """
 
 from __future__ import annotations
@@ -39,6 +46,8 @@ BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
 CONTIG = "chr1"
 FORBIDDEN = frozenset({"jax", "jaxlib", "flax", "octopus_tpu"})
+# the tests' CPU rehearsal of a cell whose traffic gives no `rehearsal`
+REHEARSAL = {"contig_kb": 20, "shard_kb": 5}
 
 
 def log(*parts) -> None:
@@ -67,6 +76,14 @@ def load_cell(spec: dict, workload: str, root: Path = ROOT):
     with open(BENCH / "traffic" / f"{cell['traffic']}.json") as fh:
         traffic = json.load(fh)
     return cell, config, traffic
+
+
+def rehearsal_size(spec: dict, workload: str, root: Path = ROOT) -> dict:
+    """The contig and shard the tests rehearse `workload` at on the CPU:
+    its traffic's `rehearsal` (`contig_kb`, `shard_kb`) where it has one,
+    else REHEARSAL."""
+    traffic = load_cell(spec, workload, root)[2]
+    return dict(traffic.get("rehearsal", REHEARSAL))
 
 
 def metrics_of(spec: dict, kind: str, workload: str) -> list:
@@ -197,7 +214,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
         card_before = card_info() if trace and on_card else {}
         if spans:
             spans.install(timers)
-        capture.install(pairhmm_batch, native, timers, subclone_vb)
+        capture.install(pairhmm_batch, native, timers, subclone_vb,
+                        genotype_likelihoods)
         likelihood_array.ROUTING.reset()
         for counts in pairhmm_batch.KERNEL_COUNTS.values():
             counts.reset()
@@ -233,8 +251,11 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
         called_bp = sum(end - begin for (begin, end), _ in called)
         capture.on = False
         capture.finish()
+        profiler_stop_ns = 0
         if prof is not None:
+            stop = time.perf_counter_ns()
             prof.__exit__(None, None, None)
+            profiler_stop_ns = time.perf_counter_ns() - stop
         capture.uninstall()
         if spans:
             spans.uninstall()
@@ -256,22 +277,27 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
         shares, counts = check.records_shares(called, inputs.sites,
                                               inputs.reference)
         seen = check.unseen(capture, all_launches, routing)
+        sample = check.pairhmm_sample(capture)
+        reductions = capture.reductions()
 
         def numbers_of(control=None):
-            hmm = check.pairhmm_gap(capture, control)
+            hmm = check.pairhmm_gap(sample, control)
             vb = check.vb_gap(capture, config.get("vb"), subclone_vb.COUNTS,
                               control)
+            gl = check.genotype_gap(reductions, genotype_likelihoods.COUNTS,
+                                    capture.gl_calls, control)
             numbers = {"hmm_err": hmm["hmm_err"],
                        "hmm_pairs": hmm["host_pairs"] + hmm["card_pairs"],
                        "hmm_unseen": seen["hmm_unseen"],
                        "card_unchecked": int(routing.device_pairs > 0
                                              and hmm["card_pairs"] == 0),
-                       **vb, **shares}
+                       **vb, **gl, **shares}
             judged = check.judge(numbers, config["limits"])
             return hmm, judged, failed == 0 and all(
                 j["holds"] for j in judged.values())
 
         hmm, judged, correct = numbers_of()
+        check_s = (time.perf_counter_ns() - last_end - profiler_stop_ns) / 1e9
         control_results = {}
         for control in controls:
             _, cj, cc = numbers_of(control)
@@ -284,12 +310,17 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
             "failed": failed,
             "regions": [f"{b}-{e}" for b, e in measured[:attempted]],
             "called_kb": called_bp / 1e3, "window_s": window_ns / 1e9,
-            "setup_s": setup_s, "card": card, "card_before": card_before,
+            "setup_s": setup_s, "check_s": check_s, "card": card,
+            "card_before": card_before,
             "kernel_launches": kernel_launches, **routing_counts,
             "launches_per_mb": kernel_launches / called_mb if called_mb else None,
             "card_pairs_per_mb": routing_counts["card_pairs"] / called_mb if called_mb else None,
             "host_dp_pairs_per_mb": routing_counts["host_pairs"] / called_mb if called_mb else None,
-            "vb": vb_counts, "genotype": genotype_counts, "unseen": seen["parts"],
+            "vb": vb_counts, "genotype": genotype_counts,
+            "genotype_kept": {"host": len(capture.gl_host.items),
+                              "device": len(capture.gl_card.items),
+                              "seen": capture.gl_calls},
+            "unseen": seen["parts"],
             "checked": {k: v for k, v in hmm.items() if k != "hmm_err"},
             "records": counts, "shard_s": shard_s}}))
 
@@ -338,5 +369,5 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
         shutil.rmtree(work, ignore_errors=True)
 
 
-__all__ = ["run_cell", "load_spec", "load_cell", "shards_of", "one_pass",
-           "forbidden_modules", "Reading", "FORBIDDEN"]
+__all__ = ["run_cell", "load_spec", "load_cell", "rehearsal_size", "shards_of",
+           "one_pass", "forbidden_modules", "Reading", "FORBIDDEN", "REHEARSAL"]

@@ -1,24 +1,33 @@
 """The comparison that decides `correct`, run once the window has closed.
 
-Three layers, each against its plain reference under `reference/`:
+Four layers, each against its plain reference under `reference/`:
 
-* the pair-HMM answers of the window: a sample, drawn from the seed, of
-  the host DP's calls and of the card's launches, with the inputs the
+* the pair-HMM answers of the window: a uniform sample, drawn from the
+  seed, of at most `probes.HOST_PAIRS` pairs of the host DP's calls and
+  `probes.CARD_PAIRS` of the card's launches (`probes.PairSample`, so the
+  check's cost does not grow with a launch), with the inputs the
   likelihood layer handed them, scored again by `reference.pairhmm`;
-  `hmm_err` is the largest gap in phred units, limit 0. What the capture
-  saw is held against the program's own counters (`hmm_unseen`: launches
-  against `pairhmm_batch.KERNEL_COUNTS`, card pairs against
-  `likelihood_array.ROUTING.device_pairs`, host-DP calls against
-  `ROUTING.host_job_sets`), at least one pair has to be compared
-  (`hmm_pairs`), and one of the card's wherever ROUTING sent pairs there
-  (`card_unchecked`), so that a scorer the harness no longer sees cannot
-  pass unread;
+  `hmm_err` is the largest gap in phred units, limit 0, over `hmm_pairs`
+  compared pairs. What the capture saw is held against the program's own
+  counters (`hmm_unseen`: launches against `pairhmm_batch.KERNEL_COUNTS`,
+  card pairs against `likelihood_array.ROUTING.device_pairs`, host-DP
+  calls against `ROUTING.host_job_sets`), at least one pair has to be
+  compared (`hmm_pairs`), and one of the card's wherever ROUTING sent
+  pairs there (`card_unchecked`), so that a scorer the harness no longer
+  sees cannot pass unread;
 * the VB of the cancer model: a sample, drawn from the seed, of genotype
   rows of the window's `vb_subclone` calls, their log evidence (the best
   ELBO over the seeds) against `reference.vb` in float64 at the iterations
   and seeds the configuration states (`vb_err`, nats); `vb_rows` rows at
   least, and every evaluation `subclone_vb.COUNTS` counted seen
   (`vb_unseen`);
+* the individual model's genotype reductions: a sample, drawn from the
+  seed, of genotype rows of the window's reductions against
+  `reference.germline` in float64, the host's (float64) within 1e-9
+  relative and the device's (float32) within the reference's
+  `float32_bound`; `gl_err` the largest error over its allowance (limit
+  1), `gl_rows` the rows compared, and every reduction
+  `genotype_likelihoods.COUNTS` counted seen (`gl_unseen`);
 * the records every shard of the window wrote, against the simulated
   truth (`reference.records`): recall, precision, genotype concordance and,
   with a clone, somatic recall, each at or above the configuration's
@@ -27,7 +36,8 @@ Three layers, each against its plain reference under `reference/`:
 A control puts a reference, in a narrower type, in the program's place in
 one layer: "int8" (saturating at 127) the pair-HMM's control, "int16" (the
 reference SSE2 kernel's own width, saturating at 16000, exact at these
-reads' scores) beside it, and "bfloat16" the VB's.
+reads' scores) beside it, "bfloat16" the VB's and the device reductions',
+and "float32" the host reductions'.
 """
 
 from __future__ import annotations
@@ -36,16 +46,23 @@ from collections import defaultdict
 
 import numpy as np
 
+import torch
+
+from .reference import germline as ref_germline
 from .reference import pairhmm as ref_hmm
 from .reference import records as ref_records
 from .reference import vb as ref_vb
 
 CONTROLS = {"int16": (np.int16, 16000), "int8": (np.int8, 127)}
 VB_CONTROLS = ("bfloat16",)
+# control -> whether it takes the device's reductions (else the host's)
+GL_CONTROLS = {"float32": False, "bfloat16": True}
+GL_HOST_REL = 1e-9
 # number -> True where a larger value is better
 HIGHER = {"hmm_err": False, "hmm_pairs": True, "hmm_unseen": False,
           "card_unchecked": False, "vb_err": False, "vb_rows": True,
-          "vb_unseen": False, "recall": True, "precision": True,
+          "vb_unseen": False, "gl_err": False, "gl_rows": True,
+          "gl_unseen": False, "recall": True, "precision": True,
           "genotype": True, "somatic_recall": True}
 
 
@@ -55,49 +72,102 @@ def _as_numpy(a) -> np.ndarray:
     return np.asarray(a)
 
 
-def pairhmm_gap(capture, control: str | None = None) -> dict:
+def pairhmm_sample(capture) -> dict:
+    """The window's sampled pairs on the host, once it has closed, grouped
+    by what the reference takes at once: {"host": {(L, W, pad, nuc): the
+    ten arrays and the answers}, "card": {(R, W, pad, nuc): the seven
+    tracks and the answers}, "host_calls", "card_calls" (calls with a pair
+    in the sample), "card_held_max" (the most rows the capture held on the
+    card at once), "card_cuts"}."""
+    out = {"host": defaultdict(list), "card": defaultdict(list)}
+    host_items, card_items = capture.host.items(), capture.card.items()
+    for meta, arrays in host_items:
+        out["host"][meta].append([_as_numpy(a) for a in arrays])
+    for (pad, nuc), arrays in card_items:
+        t = [_as_numpy(a) for a in arrays]
+        out["card"][(t[0].shape[1], t[2].shape[1], pad, nuc)].append(t)
+    for side in ("host", "card"):
+        out[side] = {key: [np.concatenate([c[k] for c in calls])
+                           for k in range(len(calls[0]))]
+                     for key, calls in out[side].items()}
+    out.update(host_calls=len(host_items), card_calls=len(card_items),
+               card_held_max=capture.card.held_max, card_cuts=capture.card.cuts)
+    return out
+
+
+def pairhmm_gap(sample: dict, control: str | None = None) -> dict:
     """The widest gap between the sampled answers (or the control's) and
     the reference's, and the pairs and calls compared."""
     control = control if control in CONTROLS else None
     dtype, inf = CONTROLS[control] if control else (None, None)
     worst = top = 0
-    host_groups: dict = defaultdict(list)
-    for args, raw in capture.host.items:
-        n, L, W, pad, nuc = args[:5]
-        host_groups[(L, W, pad, nuc)].append(
-            (args[5:], np.frombuffer(raw, np.int32)))
-    host_pairs = 0
-    for (L, W, pad, nuc), calls in host_groups.items():
-        arrays = [np.concatenate([c[0][k] for c in calls]) for k in range(10)]
-        arrays = [a.reshape(-1, L) if k < 2 else
-                  a.reshape(-1, W) if k < 7 else a for k, a in enumerate(arrays)]
-        got = np.concatenate([c[1] for c in calls]).astype(np.int64)
-        want = ref_hmm.flank_scores(*arrays, pad=pad, nuc_prior=nuc)
-        if control:
-            got = ref_hmm.flank_scores(*arrays, pad=pad, nuc_prior=nuc,
-                                       dtype=dtype, inf=inf)
+    host_pairs = card_pairs = 0
+    for (L, W, pad, nuc), arrays in sample["host"].items():
+        *inputs, got = arrays
+        want = ref_hmm.flank_scores(*inputs, pad=pad, nuc_prior=nuc)
+        got = (ref_hmm.flank_scores(*inputs, pad=pad, nuc_prior=nuc,
+                                    dtype=dtype, inf=inf)
+               if control else got.astype(np.int64))
         worst = max(worst, int(np.abs(got - want).max()))
         top = max(top, int(want.max()))
         host_pairs += len(want)
-    card_groups: dict = defaultdict(list)
-    for tracks, pad, nuc, out in capture.card.items:
-        t = [_as_numpy(a).astype(np.int32) for a in tracks]
-        card_groups[(t[0].shape[1], t[2].shape[1], pad, nuc)].append(
-            (t, _as_numpy(out).astype(np.int64)))
-    card_pairs = 0
-    for (_, _, pad, nuc), calls in card_groups.items():
-        tracks = [np.concatenate([c[0][k] for c in calls]) for k in range(7)]
-        got = np.concatenate([c[1] for c in calls])
+    for (_, _, pad, nuc), arrays in sample["card"].items():
+        tracks = [a.astype(np.int32) for a in arrays[:7]]
         want = ref_hmm.banded_scores(*tracks, pad=pad, nuc_prior=nuc)
-        if control:
-            got = ref_hmm.banded_scores(*tracks, pad=pad, nuc_prior=nuc,
-                                        dtype=dtype, inf=inf)
+        got = (ref_hmm.banded_scores(*tracks, pad=pad, nuc_prior=nuc,
+                                     dtype=dtype, inf=inf)
+               if control else arrays[7].astype(np.int64))
         worst = max(worst, int(np.abs(got - want).max()))
         top = max(top, int(want.max()))
         card_pairs += len(want)
     return {"hmm_err": worst, "host_pairs": host_pairs,
-            "host_calls": len(capture.host.items), "card_pairs": card_pairs,
-            "card_calls": len(capture.card.items), "max_score": top}
+            "host_calls": sample["host_calls"], "card_pairs": card_pairs,
+            "card_calls": sample["card_calls"], "max_score": top,
+            "card_held_max": sample["card_held_max"],
+            "card_cuts": sample["card_cuts"]}
+
+
+def genotype_errors(lnL, genotypes, got, device: bool,
+                    control: str | None = None) -> np.ndarray:
+    """Each genotype row's error over its allowance, so that 1 is the
+    limit on both sides: lnL (H, R) and genotypes (rows, P) as the program
+    was handed them, got (rows,) its answers. A host reduction (float64)
+    is allowed 1e-9 of |reference| (of 1 nat where that is less), a device
+    one (float32) `reference.germline.float32_bound`. A control puts the
+    reference, in the narrower type (GL_CONTROLS), in the program's place
+    on its side."""
+    want = ref_germline.genotype_log_likelihoods(lnL, genotypes).numpy()
+    if device:
+        allow = ref_germline.float32_bound(lnL, genotypes).numpy()
+    else:
+        allow = GL_HOST_REL * np.maximum(np.abs(want), 1.0)
+    if GL_CONTROLS.get(control) == device:
+        got = ref_germline.genotype_log_likelihoods(
+            lnL, genotypes, dtype=getattr(torch, control)).numpy()
+    got = np.asarray(got, np.float64)
+    with np.errstate(invalid="ignore"):
+        gap = np.abs(got - want)
+    gap[got == want] = 0.0                      # -inf on both sides
+    gap[np.isnan(gap)] = np.inf
+    return gap / allow
+
+
+def genotype_gap(reductions: list, gl_counts, gl_calls: int,
+                 control: str | None = None) -> dict:
+    """The largest error over its allowance of the sampled genotype rows
+    (`Capture.reductions()`), the rows compared, and the reductions that
+    `genotype_likelihoods.COUNTS` counted and the capture did not see."""
+    worst, rows = 0.0, 0
+    for item in reductions:
+        if len(item["out"]) == 0:
+            continue
+        err = genotype_errors(item["lnl"], item["genotypes"], item["out"],
+                              item["device"], control)
+        worst = max(worst, float(err.max()))
+        rows += len(err)
+    counted = gl_counts.host + gl_counts.device
+    return {"gl_err": worst, "gl_rows": rows,
+            "gl_unseen": abs(counted - gl_calls)}
 
 
 def unseen(capture, kernel_launches: int, routing) -> dict:
@@ -153,5 +223,6 @@ def judge(numbers: dict, limits: dict) -> dict:
     return out
 
 
-__all__ = ["pairhmm_gap", "unseen", "vb_gap", "records_shares", "judge",
-           "CONTROLS", "VB_CONTROLS"]
+__all__ = ["pairhmm_sample", "pairhmm_gap", "unseen", "vb_gap",
+           "genotype_errors", "genotype_gap", "records_shares", "judge",
+           "CONTROLS", "VB_CONTROLS", "GL_CONTROLS", "GL_HOST_REL"]

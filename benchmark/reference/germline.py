@@ -33,17 +33,18 @@ def _f64(x) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float64, device="cpu")
 
 
-def genotype_log_likelihoods(lnL, genotypes) -> torch.Tensor:
-    """(G,) log-likelihood of each genotype: lnL (H, R) the reads'
+def genotype_log_likelihoods(lnL, genotypes,
+                             dtype: torch.dtype = torch.float64) -> torch.Tensor:
+    """(G,) float64 log-likelihood of each genotype: lnL (H, R) the reads'
     log-likelihoods under each haplotype, genotypes (G, P) haplotype
-    indices."""
-    lnL = _f64(lnL)
+    indices. `dtype` computes it in a narrower type (a control)."""
+    lnL = _f64(lnL).to(dtype)
     genotypes = torch.as_tensor(genotypes, dtype=torch.long)
     G, P = genotypes.shape
     if P == 0 or lnL.shape[1] == 0:
         return torch.zeros(G, dtype=torch.float64)
     per_read = torch.logsumexp(lnL[genotypes], dim=1) - math.log(P)  # (G, R)
-    return per_read.sum(dim=1)
+    return per_read.sum(dim=1).double()
 
 
 def float32_bound(lnL, genotypes) -> torch.Tensor:

@@ -1,8 +1,9 @@
-"""A tiny rehearsal of each cell on the CPU, in a process of its own: the
-harness's whole path (inputs, warm-up, a whole pass under a cap it does
-not reach, check, readers) runs, comes out correct with its pass
-complete, and leaves no module of JAX or of the JAX package loaded
-(top-level names compared whole)."""
+"""A tiny rehearsal of each cell on the CPU at its rehearsal size
+(`cell.rehearsal_size`), in a process of its own: the harness's whole path
+(inputs, warm-up, a whole pass under a cap it does not reach, check,
+readers) runs, comes out correct with its pass complete, and leaves no
+module of JAX or of the JAX package loaded (top-level names compared
+whole)."""
 
 import json
 import os
@@ -19,8 +20,7 @@ import json, sys
 sys.path.insert(0, {root!r})
 from benchmark import cell
 res = cell.run_cell({workload!r}, 2**31 + 3, 300, {trace}, device="cpu",
-                    traffic_override={{"contig_kb": 20, "shard_kb": 5}},
-                    tmp_root={tmp!r})
+                    traffic_override={size!r}, tmp_root={tmp!r})
 print(json.dumps({{"found": cell.forbidden_modules(), "correct": res["correct"],
                   "pass_complete": res["pass_complete"],
                   "metrics": sorted(res["metrics"]), "checks": res["checks"]}}))
@@ -33,8 +33,9 @@ def test_rehearsal_on_the_cpu(workload, trace, tmp_path):
     env = dict(os.environ, OMP_NUM_THREADS="2")
     env.pop("OCTOPUS_TPU_HOST_HMM_MAX", None)
     out = subprocess.run(
-        [sys.executable, "-c", CODE.format(root=str(cell.ROOT), workload=workload,
-                                           trace=trace, tmp=str(tmp_path))],
+        [sys.executable, "-c", CODE.format(
+            root=str(cell.ROOT), workload=workload, trace=trace, tmp=str(tmp_path),
+            size=cell.rehearsal_size(SPEC, workload))],
         capture_output=True, text=True, timeout=600, env=env, cwd=str(tmp_path))
     assert out.returncode == 0, out.stderr[-3000:]
     res = json.loads(out.stdout.strip().splitlines()[-1])

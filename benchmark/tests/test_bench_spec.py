@@ -79,3 +79,20 @@ def test_every_reader_and_config_file_is_named():
     assert len(files) == len(SPEC["configs"])
     for f in files:
         assert (ROOT / f).exists()
+
+
+def test_rehearsal_size_comes_from_the_traffic(monkeypatch):
+    """A traffic's `rehearsal` sets the size the tests rehearse its cells
+    at; without one, `cell.REHEARSAL`, as both traffics of today have."""
+    workload = SPEC["workloads"][0]["name"]
+    for w in SPEC["workloads"]:
+        assert "rehearsal" not in cell.load_cell(SPEC, w["name"])[2]
+        assert cell.rehearsal_size(SPEC, w["name"]) == cell.REHEARSAL
+    load = cell.load_cell
+
+    def with_rehearsal(spec, name, root=ROOT):
+        c, config, traffic = load(spec, name, root)
+        return c, config, {**traffic, "rehearsal": {"contig_kb": 12, "shard_kb": 3}}
+
+    monkeypatch.setattr(cell, "load_cell", with_rehearsal)
+    assert cell.rehearsal_size(SPEC, workload) == {"contig_kb": 12, "shard_kb": 3}

@@ -1,22 +1,18 @@
 """The per-layer readers of the program's spans and counters.
 
-On a traced rehearsal of each cell (the sizes of test_bench_rehearsal.py;
-on the CPU, and on a card where there is one), and of the germline cell
-`germline-illumina35x.wgs` on the CPU, which BENCHMARK.json leaves out
-(its configuration file is kept) and a spec in memory adds: every phase
-the window recorded is read by exactly one per-layer reader, the s/Mb
-readers add up to the window's seconds a Mb, and the counter readers read
-the window's counts; a cell whose configuration has no `vb` opens no VB
-phase and counts no VB evaluation. The germline rehearsal's `correct` is
-not asserted: a fault of the program (allele depths that count no
-ambiguous read, so some hom calls are filtered) fails its recall floor.
-The window is one pass: the rehearsal calls each measured shard once, in
+On a traced rehearsal of each cell of BENCHMARK.json at its rehearsal size
+(`cell.rehearsal_size`; on the CPU, and on a card where there is one):
+the rehearsal is correct, every phase the window recorded is read by
+exactly one per-layer reader, the s/Mb readers add up to the window's
+seconds a Mb, and the counter readers read the window's counts; a cell
+whose configuration has no `vb` opens no VB phase and counts no VB
+evaluation, and reaches the individual model's genotype reductions. The
+window is one pass: the rehearsal calls each measured shard once, in
 order. A counter reader returns None on a program without its counter. On
 the card (skipped without one): the harness's clock, the path that puts
 the card's idle gaps on host phases, holds a kernel inside the span that
 issued it."""
 
-import copy
 import json
 import subprocess
 import sys
@@ -29,14 +25,6 @@ from benchmark import cell, probes
 
 SPEC = cell.load_spec()
 COUNTERS = ("vb_host_evals_per_mb", "vb_captures_per_mb", "shortcut_pairs_per_mb")
-GERMLINE = "germline-illumina35x.wgs"
-# BENCHMARK.json with the germline cell, in memory
-WIDE = copy.deepcopy(SPEC)
-WIDE["configs"].append({"name": "germline-illumina35x",
-                        "file": "benchmark/configs/germline-illumina35x.json"})
-WIDE["workloads"].append({"name": GERMLINE, "config": "germline-illumina35x",
-                          "traffic": "wgs", "chips": 1})
-SIZE = {"contig_kb": 20, "shard_kb": 5}
 CAP = 600                   # seconds no rehearsal reaches: each calls its whole pass
 
 
@@ -56,7 +44,7 @@ def span_readers(workload: str) -> dict:
 
 @pytest.fixture(scope="module",
                 params=[(w["name"], device) for w in SPEC["workloads"]
-                        for device in ("cpu", "cuda")] + [(GERMLINE, "cpu")],
+                        for device in ("cpu", "cuda")],
                 ids=lambda p: "-".join(p))
 def traced(request, tmp_path_factory):
     """(workload, result line, span self seconds, window log, shortcut
@@ -85,7 +73,7 @@ def traced(request, tmp_path_factory):
     try:
         with contextlib.redirect_stderr(log):
             res = cell.run_cell(workload, 2**31 + 3, CAP, True, device=device,
-                                spec=WIDE, traffic_override=SIZE,
+                                traffic_override=cell.rehearsal_size(SPEC, workload),
                                 tmp_root=str(tmp_path_factory.mktemp("traced")))
     finally:
         mp.undo()
@@ -93,7 +81,12 @@ def traced(request, tmp_path_factory):
                   if line.startswith('{"window"'))
     return (workload, res, recorded[0], window,
             likelihood_array.ROUTING.shortcut_pairs,
-            "vb" in cell.load_cell(WIDE, workload)[1])
+            "vb" in cell.load_cell(SPEC, workload)[1])
+
+
+def test_rehearsal_is_correct(traced):
+    _, res, _, _, _, _ = traced
+    assert res["correct"], res["checks"]
 
 
 def test_every_phase_is_read_by_one_reader(traced):
@@ -145,8 +138,9 @@ def test_counter_readers_read_the_window_counts(traced):
 
 def test_rehearsal_calls_its_whole_pass_once_in_order(traced):
     workload, res, _, window, _, _ = traced
-    traffic = cell.load_cell(WIDE, workload)[2]
-    _, measured = cell.shards_of({**traffic, **SIZE}, SIZE["contig_kb"] * 1000)
+    traffic = cell.load_cell(SPEC, workload)[2]
+    size = cell.rehearsal_size(SPEC, workload)
+    _, measured = cell.shards_of({**traffic, **size}, size["contig_kb"] * 1000)
     assert window["pass_complete"] and res["attempted"] == len(measured)
     assert window["regions"] == [f"{b}-{e}" for b, e in measured]
     assert len(window["shard_s"]) == len(measured)

@@ -314,9 +314,13 @@ class CallerBase:
         calls: list[SiteCall] = []
         called_spans: list[tuple[int, int]] = []
         while not gen.done():
-            packet = gen.generate()
+            # the tree: walker, holdout, path extension and its pruning
+            # rounds, lagging, Haplotype.build
+            with timers.phase("hapgen_tree"):
+                packet = gen.generate()
             if packet is None:
                 break
+            ROUTING.record_packet()
             with timers.phase("active_region"):
                 ctx = self._context_from_haplotypes(
                     packet.haplotypes, packet.variants, reads_by_sample,

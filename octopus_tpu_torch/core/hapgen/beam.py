@@ -17,7 +17,8 @@ import os
 
 import numpy as np
 
-from ..likelihood.likelihood_array import HaplotypeLikelihoodArray, LikelihoodConfig
+from ..likelihood.likelihood_array import (ROUTING, HaplotypeLikelihoodArray,
+                                           LikelihoodConfig)
 from ..types.haplotypes import Haplotype
 from ..types.variants import Variant
 from .generator import group_exclusive_sites
@@ -110,6 +111,7 @@ def _prune_paths(paths, begin, end, ref_fetch, reads_by_sample, keep,
         b if len(b) <= cap
         else b.take(np.linspace(0, len(b) - 1, cap).astype(np.int64))
         for b in reads_by_sample]
+    ROUTING.record_prune_round()
     haps = [Haplotype.build(begin, end, p, ref_fetch) for p in paths]
     arr = HaplotypeLikelihoodArray(likelihood_config or LikelihoodConfig())
     arr.populate(reads_by_sample, [h.sequence for h in haps], begin,

@@ -82,7 +82,14 @@ class RoutingCounts:
     gather_anchor_jobs, one a populate's sample or a pad group of
     assignment blocks. candidates counts the candidate variants that
     candidate generation (core/vargen/) returned to the caller, summed over
-    windows."""
+    windows. hapgen_packets counts the packets the stateful haplotype
+    generator returned (core/hapgen/haplotype_generator.py), and
+    prune_rounds the pruning rounds that scored paths (core/hapgen/beam.py
+    _prune_paths, from the beam and the generator alike). card_reductions
+    sums the shapes of the genotype reductions run on the device
+    (core/models/genotype_likelihoods.py): "ghr", "gh", "hr" and "gr", the
+    sums of G*H*R, G*H, H*R and G*R over G genotypes, H haplotypes and R
+    reads."""
 
     job_sets: Counter = field(default_factory=Counter)
     pairs: Counter = field(default_factory=Counter)
@@ -90,6 +97,9 @@ class RoutingCounts:
     tied_reads_credited: int = 0
     native_gathers: int = 0
     candidates: int = 0
+    hapgen_packets: int = 0
+    prune_rounds: int = 0
+    card_reductions: Counter = field(default_factory=Counter)
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False,
                                   compare=False)
 
@@ -113,6 +123,19 @@ class RoutingCounts:
     def record_candidates(self, n: int) -> None:
         with self._lock:
             self.candidates += n
+
+    def record_packet(self) -> None:
+        with self._lock:
+            self.hapgen_packets += 1
+
+    def record_prune_round(self) -> None:
+        with self._lock:
+            self.prune_rounds += 1
+
+    def record_card_reduction(self, G: int, H: int, R: int) -> None:
+        with self._lock:
+            self.card_reductions.update(ghr=G * H * R, gh=G * H, hr=H * R,
+                                        gr=G * R)
 
     def _total(self, counter: Counter, host: bool) -> int:
         return sum(v for (_, scorer), v in counter.items()
@@ -142,6 +165,9 @@ class RoutingCounts:
             self.tied_reads_credited = 0
             self.native_gathers = 0
             self.candidates = 0
+            self.hapgen_packets = 0
+            self.prune_rounds = 0
+            self.card_reductions.clear()
 
 
 ROUTING = RoutingCounts()

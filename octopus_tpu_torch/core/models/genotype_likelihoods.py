@@ -25,6 +25,8 @@ import numpy as np
 import torch
 
 from ...device import resolve_device
+from ...utils import timers
+from ..likelihood.likelihood_array import ROUTING
 from ..types.genotypes import genotype_counts_matrix
 
 # G * P * R below this runs on the host in float64
@@ -153,7 +155,9 @@ def genotype_log_likelihoods(lnL: np.ndarray, genotypes: np.ndarray,
     """Genotype log-likelihoods: float32 on `device` (sharded over the
     reads on a host with several cards, from SHARD_MIN_ELEMENTS), or exact
     float64 on the host for small reductions and when use_device is
-    False."""
+    False. The device branch is the genotype_card phase, from the counts
+    matrix to the copy back; its shapes go to ROUTING.card_reductions.
+    The host branch opens no phase."""
     G, P = genotypes.shape
     if P == 0 or lnL.shape[1] == 0:
         return np.zeros(G)
@@ -161,16 +165,20 @@ def genotype_log_likelihoods(lnL: np.ndarray, genotypes: np.ndarray,
         COUNTS.host += 1
         return genotype_log_likelihoods_np(lnL, genotypes)
     dev = resolve_device(device)
-    counts = genotype_counts_matrix(genotypes, lnL.shape[0])
-    devices = _reduction_devices(G * P * lnL.shape[1], lnL.shape[1], dev)
-    if len(devices) > 1:
-        out = _genotype_lls_sharded(devices, lnL, counts, int(P))
-    else:
-        out = genotype_log_likelihoods_torch(
-            torch.as_tensor(lnL, dtype=torch.float32, device=dev),
-            torch.as_tensor(counts, dtype=torch.float32, device=dev), int(P))
+    H, R = lnL.shape
+    with timers.phase("genotype_card"):
+        counts = genotype_counts_matrix(genotypes, H)
+        devices = _reduction_devices(G * P * R, R, dev)
+        if len(devices) > 1:
+            out = _genotype_lls_sharded(devices, lnL, counts, int(P))
+        else:
+            out = genotype_log_likelihoods_torch(
+                torch.as_tensor(lnL, dtype=torch.float32, device=dev),
+                torch.as_tensor(counts, dtype=torch.float32, device=dev), int(P))
+        out = out.double().cpu().numpy()
     COUNTS.device += 1
-    return out.double().cpu().numpy()
+    ROUTING.record_card_reduction(G, H, R)
+    return out
 
 
 __all__ = ["genotype_log_likelihoods", "genotype_log_likelihoods_np",
